@@ -1,0 +1,24 @@
+"""hwbloomradixjoin_tpu_torch — the PyTorch + CUDA port of hwbloomradixjoin_tpu.
+
+The JAX package beside it stays the reference.  This package mirrors its
+module names and array layouts; every Pallas kernel on a ported path is a
+hand-written CUDA kernel for Hopper (``csrc/``), built with ``nvcc`` at first
+use (``kernels/_build.py``), with a plain PyTorch twin that runs on CPU
+tensors.  Importing the package builds and loads nothing.
+
+Ported so far: the PRO bitmap radix join (unique build side, count only, one
+device) and the portable ``ht``/``sortscan`` tiers; see ROADMAP.md.
+"""
+
+__version__ = "0.1.0"
+
+from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
+from hwbloomradixjoin_tpu_torch.types import JoinResult, KeyStats, Relation
+
+__all__ = [
+    "Relation",
+    "JoinResult",
+    "KeyStats",
+    "RadixConfig",
+    "EngineConfig",
+]

@@ -1,0 +1,146 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources in ``hwbloomradixjoin_tpu_torch/csrc/*.cu`` are compiled by
+``nvcc`` for Hopper (``sm_90a``) into ONE shared library with a plain C
+interface, at first use, and loaded with ``ctypes``.  Nothing is built or
+loaded when the package is imported, so it imports on machines without a GPU.
+The library lands in ``hwbloomradixjoin_tpu_torch/build/`` under a name that
+hashes the sources and flags, so an edited source is rebuilt and an unchanged
+one is reused.
+
+Every C entry point takes raw device pointers and the CUDA stream as
+``c_void_p``, launches on that stream without synchronising, and returns
+``cudaGetLastError()``; :func:`launch` raises on a non-zero code and counts the
+launch in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# One count per kernel wrapper: +1 each time the wrapper launches its kernel
+# on the card (the CPU twins never count).  Reset with reset_launches().
+LAUNCHES = {"partition": 0, "compact": 0, "bitmap_build": 0,
+            "bitmap_probe": 0}
+
+_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "hbrj_partition": [_vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _i, _i, _i,
+                       _i, _i, _vp],
+    "hbrj_compact": [_vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
+    "hbrj_bitmap_build": [_vp, _ll, _vp, _ll, _i, _i, _i, _ll, _vp],
+    "hbrj_bitmap_probe": [_vp, _vp, _ll, _vp, _i, _i, _i, _ll, _vp],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_info: dict = {}      # path, seconds (0.0 when reused), compiler log
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the CUDA kernels "
+                           "are built from source at first use")
+    return path
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the build directory (no-op when up to date)."""
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    so = BUILD_DIR / f"libhbrj_kernels_{digest.hexdigest()[:16]}.so"
+    if so.exists():
+        build_info.update(path=str(so), seconds=0.0, log="")
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}"
+                           f"\n{proc.stderr}")
+    os.replace(tmp, so)
+    build_info.update(path=str(so), seconds=seconds,
+                      log=proc.stdout + proc.stderr)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            dll = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(dll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            dll.hbrj_error_string.argtypes = [ctypes.c_int]
+            dll.hbrj_error_string.restype = ctypes.c_char_p
+            _lib = dll
+        return _lib
+
+
+def is_loaded() -> bool:
+    return _lib is not None
+
+
+def check_cuda(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous int32 tensor on one CUDA card
+    with a 16-byte-aligned start (the kernels load 16 bytes at a time)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"CUDA kernel given a tensor on {t.device}")
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"need contiguous int32, got {t.dtype}, "
+                             f"contiguous={t.is_contiguous()}")
+        if t.data_ptr() % 16:
+            raise ValueError("tensor start is not 16-byte aligned")
+
+
+def launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry point `entry` on `device`'s current stream; count it."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        dll = lib()
+        rc = getattr(dll, entry)(*args, stream)
+    if rc != 0:
+        msg = dll.hbrj_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")
+    LAUNCHES[name] += 1

@@ -1,0 +1,314 @@
+"""The PRO radix-join engine: MSB radix partition + exact-bitmap probe.
+
+Counterpart of ``hwbloomradixjoin_tpu/ops/bitmap_join.py``.  The join is
+
+    R partition -> bitmap build -> [S survivor compaction] -> S partition
+    -> bitmap probe
+
+with R's key range [lo, hi] split into 2^part_bits buckets of 2^shift keys;
+bucket b owns the bitmap rows [b*sl_rows, (b+1)*sl_rows) of a
+``(F * sl_rows, 128)`` int32 bitmap, the JAX package's layout.  Unique build
+keys make the bitmap exact (one bit per key), so the probe count needs no
+verification.
+
+The geometry planners are the JAX package's, unchanged, so both packages
+choose the same (part_bits, shift, sl_rows) and their layouts compare
+directly.  Their constants are a TPU cost model; on the H100 they only fix
+the layout.
+
+``bitmap_build`` and ``bitmap_probe_count`` launch the CUDA kernels of
+``csrc/bitmap_join.cu`` for tensors on the card and run their plain twins
+(``build_bitmap``, ``bitmap_probe_count_plain``) for tensors on the CPU.
+Unlike the TPU kernels they need no DMA window descriptors
+(``derive_descs``): the build ORs every in-range key of partitioned R, and
+the probe streams partitioned S flat, so every element counts exactly once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from hwbloomradixjoin_tpu_torch.kernels import _build
+from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
+from hwbloomradixjoin_tpu_torch.ops.radix import LANES
+
+CHUNK_ROWS = 4096          # partition chunk: 512K elements (2 MiB keys)
+
+# TPU cost model, measured on TPU v5e (JAX package, tools/part_bench.py,
+# round 5): one split-network bit costs ~0.185 ns/elem streamed; one resident
+# slice row adds ~0.004 ns/elem to the probe's select ladder.  Kept so the
+# port plans the JAX package's geometry; an H100 cost model is later work.
+SPLIT_NS_PER_BIT = 0.185
+LADDER_NS_PER_ROW = 0.004
+SHIFT_MAX = 25                 # sl_rows cap 2^13 rows = 4 MiB slice
+
+
+def plan_geometry(lo: int, hi: int, num_radix_bits: Optional[int] = None,
+                  survivor_frac: float = 1.0):
+    """Derive (part_bits, shift, sl_rows) from the build-side key range.
+
+    Each bucket covers 2^shift keys and owns a bitmap slice of
+    sl_rows = max(2^(shift-12), 8) rows of 128 words.  Fan-out minimizes the
+    TPU cost model above; num_radix_bits overrides it within the valid
+    window.  Identical to the JAX package's plan_geometry.
+    """
+    span = hi - lo + 1
+    range_bits = max((max(span - 1, 1)).bit_length(), 12)
+    lo_bits = max(range_bits - SHIFT_MAX, 0)
+    hi_bits = max(range_bits - 12, 0)
+    sf = min(max(survivor_frac, 1e-4), 1.0)
+
+    def cost(bits):
+        sl = max(1 << (range_bits - bits - 12), 8)
+        return (bits + 1) * SPLIT_NS_PER_BIT + sf * LADDER_NS_PER_ROW * sl
+
+    if num_radix_bits is None:
+        part_bits = min(range(lo_bits, hi_bits + 1), key=cost)
+    else:
+        part_bits = min(max(num_radix_bits, lo_bits), hi_bits)
+    shift = range_bits - part_bits
+    sl_rows = max(1 << (shift - 12), 8)
+    return part_bits, shift, sl_rows
+
+
+def plan_build_geometry(lo: int, hi: int, part_bits: int, shift: int,
+                        sl_rows: int):
+    """R-side (build) geometry: may be FINER than the probe geometry.
+
+    With shift > 19 both layouts are unpadded (sl_rows == 2^(shift-12)), so
+    word(norm) = norm >> 5 row-major and a build partition at shift_r = 19
+    tiles the probe's global bitmap exactly.  Identical to the JAX package.
+    """
+    span = hi - lo + 1
+    range_bits = max((max(span - 1, 1)).bit_length(), 12)
+    shift_r = 19
+    if shift > shift_r and range_bits - shift_r >= 1:
+        bits_r = range_bits - shift_r
+        return bits_r, shift_r, 1 << (shift_r - 12)
+    return part_bits, shift, sl_rows
+
+
+def build_bitmap(r_key: torch.Tensor, lo: int, hi: int, part_bits: int,
+                 shift: int, sl_rows: int) -> torch.Tensor:
+    """Plain twin of the build: exact bitmap of R's keys in [lo, hi].
+
+    Global bit of a key = bucket * sl_rows*4096 + (norm & (2^shift - 1)); the
+    bits are set in a bool map and packed 32 to a word (bit j of a word is
+    weight 2^j), so the result is the OR of the keys' bits for any multiset.
+    """
+    slice_bits = sl_rows * LANES * 32
+    nbits = (1 << part_bits) * slice_bits
+    key = r_key.reshape(-1).long()
+    ok = (key >= lo) & (key <= hi)
+    norm = key[ok] - lo
+    bitpos = (norm >> shift) * slice_bits + (norm & ((1 << shift) - 1))
+    bits = torch.zeros(nbits, dtype=torch.bool, device=r_key.device)
+    bits[bitpos] = True
+    weights = torch.ones(32, dtype=torch.int64, device=r_key.device) \
+        << torch.arange(32, device=r_key.device)
+    words = (bits.view(-1, 32).long() * weights).sum(dim=1)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32).view((1 << part_bits) * sl_rows, LANES)
+
+
+def bitmap_build(r_part: torch.Tensor, lo: int, hi: int, part_bits: int,
+                 shift: int, sl_rows: int) -> torch.Tensor:
+    """Build the exact bitmap from partitioned R: (F * sl_rows, 128) int32.
+
+    Replaces the Pallas bitmap_build_pallas (bitmap_join.py:449).
+    """
+    if r_part.device.type == "cpu":
+        return build_bitmap(r_part, lo, hi, part_bits, shift, sl_rows)
+    _build.check_cuda(r_part)
+    bm = torch.empty(((1 << part_bits) * sl_rows, LANES), dtype=torch.int32,
+                     device=r_part.device)
+    _build.launch("bitmap_build", "hbrj_bitmap_build", r_part.device,
+                  r_part.data_ptr(), r_part.numel(), bm.data_ptr(), bm.numel(),
+                  lo, hi, shift, sl_rows * LANES)
+    return bm
+
+
+def bitmap_probe_count_plain(bitmap: torch.Tensor, s_part: torch.Tensor,
+                             lo: int, shift: int, part_bits: int,
+                             sl_rows: int) -> torch.Tensor:
+    """Plain twin of the probe: int64 count of S keys whose bit is set.
+
+    A key counts when its ARITHMETIC bucket (int32-wrapped key - lo) >> shift
+    lies in [0, F), as the TPU kernel's bucket test has it.
+    """
+    key = s_part.reshape(-1).long()
+    norm = (key - lo + (1 << 31)) % (1 << 32) - (1 << 31)   # int32 wrap
+    bucket = norm >> shift
+    ok = (bucket >= 0) & (bucket < (1 << part_bits))
+    local = norm & ((1 << shift) - 1)
+    word = torch.where(ok, bucket * (sl_rows * LANES) + (local >> 5), 0)
+    bit = (bitmap.reshape(-1)[word].long() >> (norm & 31)) & 1
+    return (bit * ok).sum()
+
+
+def bitmap_probe_count(bitmap: torch.Tensor, s_part: torch.Tensor, lo: int,
+                       shift: int, part_bits: int,
+                       sl_rows: int) -> torch.Tensor:
+    """Count S matches against the bitmap: 0-d int64 tensor on s_part's device.
+
+    Replaces the Pallas bitmap_probe_count (bitmap_join.py:314).
+    """
+    if s_part.device.type == "cpu":
+        return bitmap_probe_count_plain(bitmap, s_part, lo, shift, part_bits,
+                                        sl_rows)
+    _build.check_cuda(bitmap, s_part)
+    if bitmap.numel() != (1 << part_bits) * sl_rows * LANES:
+        raise ValueError(f"bitmap of {bitmap.numel()} words for geometry "
+                         f"({part_bits}, {shift}, {sl_rows})")
+    out = torch.empty((), dtype=torch.int64, device=s_part.device)
+    _build.launch("bitmap_probe", "hbrj_bitmap_probe", s_part.device,
+                  bitmap.data_ptr(), s_part.data_ptr(), s_part.numel(),
+                  out.data_ptr(), lo, shift, 1 << part_bits, sl_rows * LANES)
+    return out
+
+
+def plan_bitmap_build(r_key, lo: int, hi: int, part_bits: int, shift: int,
+                      sl_rows: int, chunk_rows: int = CHUNK_ROWS,
+                      device=None):
+    """Plan the R-side build: returns (rk_in, rgeom).
+
+    rk_in is R chunk-padded with PAD; rgeom partitions it, dropping the pad
+    category when PAD cannot alias a bucket (R holds no out-of-range keys).
+    RadixJoinPlan.r_partition and .build run the build.  The TPU plan synced
+    once here to size its DMA windows; the port needs no windows, so planning
+    the build reads nothing back.
+    """
+    rgeom = radix_ops.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits,
+                                lo=lo, hi=hi, shift=shift,
+                                pad_cat=not radix_ops.pad_cat_safe(lo, hi))
+    return radix_ops._chunk_pad(r_key, chunk_rows * LANES, device), rgeom
+
+
+@dataclasses.dataclass
+class RadixJoinPlan:
+    """A planned radix join over device-resident, chunk-padded inputs.
+
+    full() runs the whole join (R partition, build, [compaction], S
+    partition, probe) and returns the count as a device tensor without
+    synchronising; full_count() reads it back.  phase_fns() gives one
+    callable per phase, each re-running that phase on the inputs planning
+    produced, for phase timing.
+    """
+
+    rk_in: torch.Tensor
+    sk_in: torch.Tensor
+    lo: int
+    hi: int
+    rgeom: radix_ops.RadixGeom       # build partition (R)
+    r_sl_rows: int
+    sgeom: radix_ops.RadixGeom       # probe partition (S)
+    sl_rows: int
+    cap_rows: Optional[int]          # survivor compaction cap; None = off
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.sk_in.device
+
+    def r_partition(self):
+        return radix_ops.partition_pass(self.rk_in, self.rgeom)
+
+    def build(self, r_part: torch.Tensor) -> torch.Tensor:
+        g = self.rgeom
+        return bitmap_build(r_part, self.lo, self.hi, g.part_bits, g.shift,
+                            self.r_sl_rows)
+
+    def s_effective(self) -> torch.Tensor:
+        """S as the partition sees it: compacted survivors, or S itself."""
+        if self.cap_rows is None:
+            return self.sk_in
+        chunk_rows = self.sgeom.chunk_rows
+        ck, _ = radix_ops.compact_pass(self.sk_in, self.lo, self.hi,
+                                       chunk_rows, cap_rows=self.cap_rows)
+        return radix_ops._chunk_pad(ck.view(-1), chunk_rows * LANES)
+
+    def s_partition(self, s_eff: torch.Tensor):
+        return radix_ops.partition_pass(s_eff, self.sgeom)
+
+    def probe(self, bitmap: torch.Tensor, s_part: torch.Tensor):
+        g = self.sgeom
+        return bitmap_probe_count(bitmap, s_part, self.lo, g.shift,
+                                  g.part_bits, self.sl_rows)
+
+    def full(self) -> torch.Tensor:
+        bitmap = self.build(self.r_partition()[0])
+        s_part, _ = self.s_partition(self.s_effective())
+        return self.probe(bitmap, s_part)
+
+    def full_count(self) -> int:
+        return int(self.full())
+
+    def _intermediates(self) -> dict:
+        if not self._cache:
+            r_part, _ = self.r_partition()
+            s_eff = self.s_effective()
+            self._cache.update(r_part=r_part, bitmap=self.build(r_part),
+                               s_eff=s_eff,
+                               s_part=self.s_partition(s_eff)[0])
+        return self._cache
+
+    def phase_fns(self) -> dict:
+        """name -> zero-argument callable re-running that phase, join order."""
+        m = self._intermediates()
+        fns = {"r_partition": self.r_partition,
+               "build": lambda: self.build(m["r_part"])}
+        if self.cap_rows is not None:
+            fns["compact"] = self.s_effective
+        fns["s_partition"] = lambda: self.s_partition(m["s_eff"])
+        fns["probe"] = lambda: self.probe(m["bitmap"], m["s_part"])
+        return fns
+
+
+def plan_radix_join(r_key, s_key, lo: int, hi: int, device=None,
+                    chunk_rows: int = CHUNK_ROWS,
+                    num_radix_bits: Optional[int] = None,
+                    survivor_frac: Optional[float] = None) -> RadixJoinPlan:
+    """Plan the radix join of unique R keys in [lo, hi] with S.
+
+    r_key/s_key: numpy arrays (padded on the host) or tensors.  device: where
+    the join runs (default: s_key's device, or the CPU for numpy).
+    survivor_frac: fraction of S inside [lo, hi]; None measures it (one host
+    sync).  Under half triggers survivor compaction when the compacted stream
+    is at most 60% of S; the per-chunk cap comes from one plan-time
+    compaction's live counts (a second host sync).  As in the JAX package.
+    """
+    if device is None:
+        device = s_key.device if isinstance(s_key, torch.Tensor) else "cpu"
+    device = torch.device(device)
+    chunk = chunk_rows * LANES
+    sk_in = radix_ops._chunk_pad(s_key, chunk, device)
+    if survivor_frac is None:
+        live = ((sk_in >= lo) & (sk_in <= hi)).sum()
+        survivor_frac = int(live) / sk_in.numel()
+
+    cap_rows = None
+    nchunks0 = sk_in.numel() // chunk
+    if survivor_frac < 0.5 and nchunks0 > 0:
+        _, counts0 = radix_ops.compact_pass(sk_in, lo, hi, chunk_rows,
+                                            cap_rows=8)
+        max_live = int(counts0[::8, 0].max())
+        cap = min(max((-(-max_live // LANES) + 7) & ~7, 8), chunk_rows)
+        if nchunks0 * cap <= (sk_in.numel() // LANES) * 6 // 10:
+            cap_rows = cap
+
+    # after compaction split and probe both see survivors only, so the
+    # survivor_frac=1 geometry is the optimum (JAX package, same rule)
+    part_bits, shift, sl_rows = plan_geometry(
+        lo, hi, num_radix_bits, 1.0 if cap_rows is not None else survivor_frac)
+    sgeom = radix_ops.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits,
+                                lo=lo, hi=hi, shift=shift)
+    bits_r, shift_r, sl_rows_r = plan_build_geometry(lo, hi, part_bits, shift,
+                                                     sl_rows)
+    rk_in, rgeom = plan_bitmap_build(r_key, lo, hi, bits_r, shift_r,
+                                     sl_rows_r, chunk_rows, device)
+    return RadixJoinPlan(rk_in=rk_in, sk_in=sk_in, lo=lo, hi=hi, rgeom=rgeom,
+                         r_sl_rows=sl_rows_r, sgeom=sgeom, sl_rows=sl_rows,
+                         cap_rows=cap_rows)

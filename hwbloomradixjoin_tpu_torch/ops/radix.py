@@ -1,0 +1,219 @@
+"""Radix partition and survivor compaction over (rows, 128) int32 key tiles.
+
+Counterpart of ``hwbloomradixjoin_tpu/ops/radix.py``.  Keys stream in chunks
+of ``chunk_rows * 128``; each chunk is reordered bucket-major, stably, and a
+suffix-filled ``starts`` table gives each category's run.  The layouts are
+the JAX package's, bit for bit:
+
+- keys out: ``(nchunks * chunk_rows, 128)`` int32, chunk-major;
+- starts: ``(nchunks * cat_rows, 128)`` int32; flat entry j of a chunk is the
+  number of its elements with category < j (so ``chunk`` past the last
+  category); ``cat_rows`` is rounded up to a multiple of 8.
+
+``partition_pass`` and ``compact_pass`` launch the hand-written CUDA kernels
+of ``csrc/radix.cu`` for a tensor on the card and run their plain PyTorch
+twins (``*_plain``) for a tensor on the CPU.  The twins are the reference the
+kernels are checked against on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from hwbloomradixjoin_tpu_torch.kernels import _build
+from hwbloomradixjoin_tpu_torch.types import PAD_KEY
+
+LANES = 128
+# the partition kernel keeps one per-warp counter per category in shared
+# memory: 2^13 buckets + the pad category fit; wider single-pass fan-outs
+# (full-int32-span key ranges) need two passes
+MAX_PART_BITS = 13
+
+
+@dataclasses.dataclass(frozen=True)
+class RadixGeom:
+    """Static partition geometry (range mode).
+
+    bucket of a key = ((key - lo) >>> shift) & (2^part_bits - 1), a logical
+    shift of the int32-wrapped difference.  With pad_cat, PAD keys and keys
+    outside [lo, hi] (when hi is set) take the pad category 2^part_bits and
+    sort to the chunk tail; without it (safe only when pad_cat_safe(lo, hi)
+    and the stream has no real out-of-range keys) PAD lands in a junk bucket
+    and consumers mask by bucket-of-key.
+    """
+
+    chunk_rows: int = 1024
+    part_bits: int = 12
+    lo: int = 0
+    hi: Optional[int] = None
+    shift: int = 0
+    pad_cat: bool = True
+    hash_seed: Optional[int] = None
+
+    def __post_init__(self):
+        if self.hash_seed is not None:
+            raise NotImplementedError(
+                "hash-mode partitioning (bloom pre-filter): ROADMAP slice 5")
+        if not 0 <= self.shift <= 31:
+            raise ValueError(f"shift {self.shift} outside [0, 31]")
+
+    @property
+    def cat_rows(self) -> int:
+        cr = ((1 << self.part_bits) + 1 + LANES - 1) // LANES
+        return (cr + 7) & ~7
+
+    @property
+    def ncats(self) -> int:
+        return (1 << self.part_bits) + (1 if self.pad_cat else 0)
+
+
+def pad_cat_safe(lo: int, hi: int) -> bool:
+    """True iff PAD_KEY's wrapped norm can never alias a real bucket.
+
+    norm(PAD) = PAD_KEY - lo wraps (int32) to 2^31 - lo; its bucket test
+    (norm >> shift) == b fails for every b < F iff 2^31 - lo >= 2^range_bits.
+    """
+    span = hi - lo + 1
+    range_bits = max((max(span - 1, 1)).bit_length(), 12)
+    return 0 <= lo <= (1 << 31) - (1 << range_bits) and range_bits <= 30
+
+
+def geom_cat_fn(geom: RadixGeom):
+    """bucket-of-key category function of a range geometry (int64 result)."""
+    def cat_fn(key: torch.Tensor) -> torch.Tensor:
+        norm = (key.long() - geom.lo) & 0xFFFFFFFF     # uint32 wrap
+        bucket = (norm >> geom.shift) & ((1 << geom.part_bits) - 1)
+        if not geom.pad_cat:
+            return bucket
+        valid = key != PAD_KEY
+        if geom.hi is not None:
+            valid = valid & (key >= geom.lo) & (key <= geom.hi)
+        return torch.where(valid, bucket, 1 << geom.part_bits)
+    return cat_fn
+
+
+def _chunk_pad(keys, chunk_elems: int, device=None) -> torch.Tensor:
+    """Flat int32 keys padded with PAD_KEY to a chunk multiple (>= 1 chunk).
+
+    numpy input is padded on the host before the one copy to `device`, so a
+    large S never has two copies on the card.
+    """
+    n = keys.shape[0]
+    padded = -(-max(n, 1) // chunk_elems) * chunk_elems
+    if isinstance(keys, np.ndarray):
+        host = np.ascontiguousarray(keys, dtype=np.int32)
+        if padded != n:
+            host = np.concatenate([host, np.full(padded - n, PAD_KEY, np.int32)])
+        return torch.from_numpy(host).to(device or "cpu")
+    keys = keys.to(device=device or keys.device, dtype=torch.int32)
+    if padded == n:
+        return keys.contiguous()
+    return torch.cat([keys, keys.new_full((padded - n,), PAD_KEY)])
+
+
+def _nchunks(keys_flat: torch.Tensor, chunk_rows: int) -> int:
+    chunk = chunk_rows * LANES
+    if keys_flat.dim() != 1 or keys_flat.numel() % chunk:
+        raise ValueError(f"need flat keys in whole chunks of {chunk}, got "
+                         f"shape {tuple(keys_flat.shape)}")
+    return keys_flat.numel() // chunk
+
+
+def partition_pass_plain(keys_flat: torch.Tensor, geom: RadixGeom):
+    """Plain twin of partition_pass: per-chunk stable sort by category."""
+    nchunks = _nchunks(keys_flat, geom.chunk_rows)
+    chunk = geom.chunk_rows * LANES
+    keys = keys_flat.view(nchunks, chunk)
+    cat = geom_cat_fn(geom)(keys)
+    cat_sorted, order = torch.sort(cat, dim=1, stable=True)
+    out = torch.gather(keys, 1, order)
+    j = torch.arange(geom.cat_rows * LANES, device=keys.device)
+    starts = torch.searchsorted(cat_sorted, j.expand(nchunks, -1).contiguous())
+    return (out.view(nchunks * geom.chunk_rows, LANES),
+            starts.to(torch.int32).view(nchunks * geom.cat_rows, LANES))
+
+
+def partition_pass(keys_flat: torch.Tensor, geom: RadixGeom):
+    """One radix pass: chunk-major, bucket-major keys + per-chunk starts.
+
+    keys_flat: (n,) int32, n a multiple of chunk_rows*128 (PAD_KEY padded).
+    Returns (keys_out (nchunks*chunk_rows, 128), starts (nchunks*cat_rows,
+    128)).  Replaces the Pallas partition_pass (radix.py:460).
+    """
+    nchunks = _nchunks(keys_flat, geom.chunk_rows)
+    if geom.part_bits > MAX_PART_BITS:
+        raise NotImplementedError(
+            f"{geom.part_bits}-bit single-pass fan-out (> {MAX_PART_BITS}): "
+            "wide key ranges need two-pass partitioning, ROADMAP slice 2")
+    if keys_flat.device.type == "cpu":
+        return partition_pass_plain(keys_flat, geom)
+    _build.check_cuda(keys_flat)
+    chunk = geom.chunk_rows * LANES
+    tile = LANES * math.gcd(geom.chunk_rows, 32)     # one warp's tile
+    dev = keys_flat.device
+    out = torch.empty((nchunks * geom.chunk_rows, LANES), dtype=torch.int32,
+                      device=dev)
+    starts = torch.empty((nchunks * geom.cat_rows, LANES), dtype=torch.int32,
+                         device=dev)
+    hist = torch.empty(nchunks * geom.ncats * (chunk // tile),
+                       dtype=torch.int32, device=dev)
+    _build.launch("partition", "hbrj_partition", dev,
+                  keys_flat.data_ptr(), out.data_ptr(), starts.data_ptr(),
+                  hist.data_ptr(), nchunks, chunk, tile, geom.lo,
+                  geom.hi if geom.hi is not None else 0,
+                  int(geom.hi is not None), geom.shift, geom.part_bits,
+                  int(geom.pad_cat), geom.cat_rows * LANES)
+    return out, starts
+
+
+def _compact_cap(chunk_rows: int, cap_rows: Optional[int]) -> int:
+    cap = chunk_rows if cap_rows is None else cap_rows
+    if not (8 <= cap <= chunk_rows and cap % 8 == 0):
+        raise ValueError(f"cap_rows {cap} not a multiple of 8 in "
+                         f"[8, {chunk_rows}]")
+    return cap
+
+
+def compact_pass_plain(keys_flat: torch.Tensor, lo: int, hi: int,
+                       chunk_rows: int, cap_rows: Optional[int] = None):
+    """Plain twin of compact_pass: per-chunk stable live-first sort."""
+    nchunks = _nchunks(keys_flat, chunk_rows)
+    cap = _compact_cap(chunk_rows, cap_rows)
+    keys = keys_flat.view(nchunks, chunk_rows * LANES)
+    live = (keys >= lo) & (keys <= hi)
+    order = torch.sort((~live).to(torch.int32), dim=1, stable=True).indices
+    packed = torch.gather(keys, 1, order)[:, :cap * LANES]
+    nlive = live.sum(dim=1, keepdim=True)
+    pos = torch.arange(cap * LANES, device=keys.device)
+    out = torch.where(pos < nlive, packed, PAD_KEY)
+    counts = nlive.to(torch.int32).expand(nchunks, 8 * LANES)
+    return (out.view(nchunks * cap, LANES),
+            counts.reshape(nchunks * 8, LANES))
+
+
+def compact_pass(keys_flat: torch.Tensor, lo: int, hi: int, chunk_rows: int,
+                 cap_rows: Optional[int] = None):
+    """Live/dead compaction: each chunk's keys in [lo, hi] move to its head.
+
+    cap_rows truncates each chunk's output to its first cap_rows rows.
+    Returns (out (nchunks*cap_rows, 128), counts (nchunks*8, 128)) with all
+    8*128 words of chunk c's count block = live count of chunk c.  Replaces
+    the Pallas compact_pass (radix.py:297).
+    """
+    nchunks = _nchunks(keys_flat, chunk_rows)
+    cap = _compact_cap(chunk_rows, cap_rows)
+    if keys_flat.device.type == "cpu":
+        return compact_pass_plain(keys_flat, lo, hi, chunk_rows, cap_rows)
+    _build.check_cuda(keys_flat)
+    dev = keys_flat.device
+    out = torch.empty((nchunks * cap, LANES), dtype=torch.int32, device=dev)
+    counts = torch.empty((nchunks * 8, LANES), dtype=torch.int32, device=dev)
+    _build.launch("compact", "hbrj_compact", dev, keys_flat.data_ptr(),
+                  out.data_ptr(), counts.data_ptr(), nchunks,
+                  chunk_rows * LANES, cap * LANES, lo, hi)
+    return out, counts

@@ -1,0 +1,147 @@
+"""PyTorch port: radix partition and compaction against the JAX package.
+
+On the CPU the wrappers run their plain twins; the JAX kernels run in
+interpret mode at tiny chunks (chunk_rows=8/16), and larger sizes are checked
+against numpy's stable sort.  Integer layouts, so tolerance is zero.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hwbloomradixjoin_tpu.ops import radix as JR
+from hwbloomradixjoin_tpu_torch.ops import radix as TR
+
+PAD = -2**31
+
+
+def _keys(rng, n, lo, hi, pad_frac=0.1, out_frac=0.2):
+    """Keys in [lo, hi] plus PAD and out-of-range keys on both sides."""
+    k = rng.integers(lo, hi + 1, n).astype(np.int64)
+    u = rng.random(n)
+    k[u < out_frac] = rng.integers(hi + 1, hi + 5 * (hi - lo + 1),
+                                   int((u < out_frac).sum()))
+    k[u < out_frac / 2] = rng.integers(-2**31 + 1, lo,
+                                       int((u < out_frac / 2).sum()))
+    k[u > 1 - pad_frac] = PAD
+    return k.astype(np.int32)
+
+
+@pytest.mark.parametrize("pad_cat", [True, False])
+def test_partition_matches_jax_interpret(pad_cat):
+    rng = np.random.default_rng(3 + pad_cat)
+    lo, hi = 100, 5099                      # range_bits 13
+    keys = _keys(rng, 2 * 8 * 128, lo, hi)
+    kw = dict(chunk_rows=8, part_bits=3, lo=lo, hi=hi, shift=10,
+              pad_cat=pad_cat)
+    want_k, want_s = JR.partition_pass(jnp.asarray(keys), interpret=True,
+                                       geom=JR.RadixGeom(**kw))
+    got_k, got_s = TR.partition_pass(torch.from_numpy(keys),
+                                     TR.RadixGeom(**kw))
+    assert got_k.shape == want_k.shape and got_s.shape == want_s.shape
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+
+
+def test_compact_matches_jax_interpret_with_truncation():
+    rng = np.random.default_rng(5)
+    lo, hi = 1000, 400_000
+    keys = _keys(rng, 2 * 16 * 128, lo, hi, pad_frac=0.05, out_frac=0.3)
+    keys[:100] = PAD                        # chunk 0: fewer live keys
+    want_k, want_c = JR.compact_pass(jnp.asarray(keys), lo, hi, 16,
+                                     cap_rows=8, interpret=True)
+    got_k, got_c = TR.compact_pass(torch.from_numpy(keys), lo, hi, 16,
+                                   cap_rows=8)
+    live = ((keys >= lo) & (keys <= hi)).reshape(2, -1).sum(1)
+    assert (live > 8 * 128).all()           # the cap really truncates
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+
+
+def _stable_reference(keys, geom):
+    cat = TR.geom_cat_fn(geom)(torch.from_numpy(keys)).numpy()
+    chunk = geom.chunk_rows * 128
+    out, starts = [], []
+    for c in range(len(keys) // chunk):
+        cc = cat[c * chunk:(c + 1) * chunk]
+        order = np.argsort(cc, kind="stable")
+        out.append(keys[c * chunk:(c + 1) * chunk][order])
+        starts.append(np.searchsorted(np.sort(cc),
+                                      np.arange(geom.cat_rows * 128)))
+    return np.concatenate(out), np.concatenate(starts)
+
+
+@pytest.mark.parametrize("part_bits,shift,lo,hi,pad_cat,chunk_rows", [
+    (0, 12, 1, 3000, True, 40),
+    (6, 18, 1, 16_000_000, True, 64),
+    (6, 18, 1, 16_000_000, False, 64),
+    (9, 18, 1, 128_000_000, True, 32),
+    (13, 12, -(1 << 24), (1 << 24) - 1, True, 96),
+    (5, 19, 0, (1 << 24) - 1, None, 64),      # hi None: no range prune
+])
+def test_partition_stable_and_starts(part_bits, shift, lo, hi, pad_cat,
+                                     chunk_rows):
+    rng = np.random.default_rng(part_bits + chunk_rows)
+    keys = _keys(rng, 3 * chunk_rows * 128, lo, hi)
+    geom = TR.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits, lo=lo,
+                        hi=None if pad_cat is None else hi, shift=shift,
+                        pad_cat=pad_cat is not False)
+    got_k, got_s = TR.partition_pass(torch.from_numpy(keys), geom)
+    want_k, want_s = _stable_reference(keys, geom)
+    np.testing.assert_array_equal(got_k.numpy().ravel(), want_k)
+    np.testing.assert_array_equal(got_s.numpy().ravel(), want_s)
+    # starts are suffix-filled: the chunk size past the last category
+    s = got_s.numpy().reshape(3, -1)
+    assert (s[:, geom.ncats:] == chunk_rows * 128).all()
+    assert (np.diff(s, axis=1) >= 0).all()
+
+
+def test_cat_fn_matches_jax():
+    rng = np.random.default_rng(9)
+    keys = np.concatenate([
+        _keys(rng, 4096, 7, 1 << 20),
+        np.array([PAD, 2**31 - 1, -2**31 + 1, 6, 7, 1 << 20, (1 << 20) + 1],
+                 np.int32)])
+    for pad_cat in (True, False):
+        for hi in (1 << 20, None):
+            kw = dict(chunk_rows=8, part_bits=4, lo=7, hi=hi, shift=17,
+                      pad_cat=pad_cat)
+            want = JR.geom_cat_fn(JR.RadixGeom(**kw))(jnp.asarray(keys))
+            got = TR.geom_cat_fn(TR.RadixGeom(**kw))(torch.from_numpy(keys))
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 16_000_000), (0, 2**31 - 1),
+                                   ((1 << 31) - (1 << 20), 2**31 - 1),
+                                   (-5, 100), (1, 1)])
+def test_pad_cat_safe_and_cat_rows_match_jax(lo, hi):
+    assert TR.pad_cat_safe(lo, hi) == JR.pad_cat_safe(lo, hi)
+    for bits in (0, 6, 7, 9, 13):
+        assert TR.RadixGeom(part_bits=bits).cat_rows == \
+            JR.RadixGeom(part_bits=bits).cat_rows
+
+
+def test_compact_no_cap_and_chunk_pad():
+    rng = np.random.default_rng(6)
+    keys = _keys(rng, 1000, 1, 5000)
+    padded = TR._chunk_pad(keys, 8 * 128)
+    assert padded.shape == (1024,) and (padded[1000:] == PAD).all()
+    assert torch.equal(TR._chunk_pad(torch.from_numpy(keys), 8 * 128), padded)
+    out, counts = TR.compact_pass(padded, 1, 5000, 8)
+    live = keys[(keys >= 1) & (keys <= 5000)]
+    np.testing.assert_array_equal(out.numpy().ravel()[:len(live)], live)
+    assert (out.numpy().ravel()[len(live):] == PAD).all()
+    assert (counts.numpy() == len(live)).all()
+
+
+def test_partition_rejects_wide_fanout_and_bad_shapes():
+    keys = torch.zeros(8 * 128, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 2"):
+        TR.partition_pass(keys, TR.RadixGeom(chunk_rows=8, part_bits=14))
+    with pytest.raises(ValueError):
+        TR.partition_pass(keys[:-1], TR.RadixGeom(chunk_rows=8, part_bits=2))
+    with pytest.raises(ValueError):
+        TR.compact_pass(keys, 0, 10, 8, cap_rows=12)
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 5"):
+        TR.RadixGeom(hash_seed=3)

@@ -1,0 +1,233 @@
+"""PyTorch port: planner, run_join and package hygiene vs the JAX package."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from hwbloomradixjoin_tpu.config import EngineConfig as JEngineConfig
+from hwbloomradixjoin_tpu.config import RadixConfig as JRadixConfig
+from hwbloomradixjoin_tpu.data import native
+from hwbloomradixjoin_tpu.models import run_join as jax_run_join
+from hwbloomradixjoin_tpu.types import KeyStats as JKeyStats
+from hwbloomradixjoin_tpu.types import Relation as JRelation
+from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
+from hwbloomradixjoin_tpu_torch.models import registry
+from hwbloomradixjoin_tpu_torch.models import run_join
+from hwbloomradixjoin_tpu_torch.types import KeyStats, Relation
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _workload(n_r=3000, n_s=20000, hi_mult=3, seed=0):
+    rng = np.random.default_rng(seed)
+    rk = rng.permutation(np.arange(1, n_r + 1)).astype(np.int32)
+    sk = rng.integers(1, hi_mult * n_r, n_s).astype(np.int32)
+    rp = rng.integers(0, 2**31 - 1, n_r).astype(np.int32)
+    sp = rng.integers(0, 2**31 - 1, n_s).astype(np.int32)
+    return rk, rp, sk, sp
+
+
+def test_run_join_pro_cuda_radix_tier_matches_jax():
+    """run_join("PRO") plans the kernel tier and counts what the JAX
+    package's pallas_radix tier (interpret mode) and ref_join count."""
+    rk, rp, sk, sp = _workload()
+    want = native.ref_join(rk, rp, sk, sp)[0]
+    jst = JKeyStats(min_key=1, max_key=3000, is_unique=True)
+    jres, jstats, _ = jax_run_join(
+        "PRO", JRelation.from_numpy(rk, rp, stats=jst),
+        JRelation.from_numpy(sk, sp), JEngineConfig(interpret=True))
+    assert jstats.tier == "pallas_radix"
+    R = Relation.from_numpy(rk, rp, stats=KeyStats(1, 3000, is_unique=True))
+    S = Relation.from_numpy(sk, sp)
+    res, st, sums = run_join("PRO", R, S, EngineConfig(), inner_repeats=2)
+    assert st.tier == "cuda_radix"
+    assert res.count() == jres.count() == want == st.result
+    assert sums == (0, 0)
+    # S (20000 keys) fills a twentieth of one padded 4096-row chunk, so the
+    # planner compacts survivors first
+    assert list(st.phases) == ["r_partition", "build", "compact",
+                               "s_partition", "probe"]
+    assert all(v > 0 for v in st.phases.values())
+    assert st.total_usec > 0 and st.raw_total_usec == st.total_usec
+    assert st.floor_usec == 0.0
+    assert st.build_usec == st.phases["r_partition"] + st.phases["build"]
+
+
+def test_run_join_compaction_phase_and_radix_bits():
+    rk, rp, sk, sp = _workload(n_r=2000, n_s=300_000, hi_mult=1000, seed=2)
+    want = native.ref_join(rk, rp, sk, sp)[0]
+    R = Relation.from_numpy(rk, rp, stats=KeyStats(1, 2000, is_unique=True))
+    S = Relation.from_numpy(sk, sp)
+    res, st, _ = run_join("RJ", R, S)
+    assert st.tier == "cuda_radix" and res.count() == want
+    assert "compact" in st.phases
+    res, st, _ = run_join("PRO", R, S, EngineConfig(
+        radix=RadixConfig(num_radix_bits=0)))
+    assert res.count() == want
+
+
+@pytest.mark.parametrize("algo,tier", [("NPO", "ht"), ("PRH", "sortscan"),
+                                       ("PRO", "ht"), ("NPO_st", "ht")])
+def test_portable_tiers_match_jax(algo, tier):
+    """ht / sortscan: counts and mod-2^32 checksums equal the JAX tiers'
+    and ref_join's, with a non-unique build side."""
+    rng = np.random.default_rng(7)
+    rk = rng.integers(1, 4000, 6000).astype(np.int32)
+    rp = rng.integers(0, 1 << 30, 6000).astype(np.int32)
+    sk = rng.integers(1, 8000, 30000).astype(np.int32)
+    sp = rng.integers(0, 1 << 30, 30000).astype(np.int32)
+    want, wsr, wss = native.ref_join(rk, rp, sk, sp)
+    jres, jst, (jsr, jss) = jax_run_join(
+        algo, JRelation.from_numpy(rk, rp), JRelation.from_numpy(sk, sp),
+        JEngineConfig(radix=JRadixConfig(use_pallas=False)))
+    assert jst.tier == tier
+    res, st, (sr, ss) = run_join(
+        algo, Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp),
+        EngineConfig(radix=RadixConfig(use_kernels=False)))
+    assert st.tier == tier
+    assert res.count() == jres.count() == want
+    assert (sr, ss) == (jsr, jss) == (wsr % 2**32, wss % 2**32)
+    assert st.probe_usec > 0 and st.total_usec > 0
+
+
+def test_select_tier_matches_jax():
+    """The ported planner picks the JAX tier names (pallas_ -> cuda_) for
+    every algorithm over unique, non-unique and wide-range build sides."""
+    from hwbloomradixjoin_tpu.models import registry as jreg
+
+    rng = np.random.default_rng(3)
+    rk = rng.permutation(np.arange(1, 3001)).astype(np.int32)
+    cases = [
+        (KeyStats(1, 3000, is_unique=True), JKeyStats(1, 3000, is_unique=True)),
+        (None, None),
+        (KeyStats(1, (1 << 28) + 7, is_unique=True),
+         JKeyStats(1, (1 << 28) + 7, is_unique=True)),
+        (KeyStats(1, 3000, True, True), JKeyStats(1, 3000, True, True)),
+    ]
+    for tstats, jstats in cases:
+        R = Relation.from_numpy(rk, stats=tstats)
+        JR = JRelation.from_numpy(rk, stats=jstats)
+        for name in registry.ALGORITHMS:
+            for use in (True, False):
+                for mat in (False, True):
+                    kr = registry._key_range(R)
+                    wr = kr or registry._key_range(
+                        R, registry.BITMAP_MAX_SPAN, require_nonneg=True)
+                    assert kr == jreg._key_range(JR)
+                    got = registry.select_tier(
+                        registry.ALGORITHMS[name], R, EngineConfig(
+                            radix=RadixConfig(use_kernels=use),
+                            materialize=mat), kr, wr)
+                    want = jreg.select_tier(
+                        jreg.ALGORITHMS[name], JR, JEngineConfig(
+                            radix=JRadixConfig(use_pallas=use),
+                            materialize=mat, interpret=True), kr, wr)
+                    assert got == want.replace("pallas_", "cuda_"), (
+                        name, use, mat, tstats)
+
+
+@pytest.mark.parametrize("algo,cfg,kw", [
+    ("PRHO", EngineConfig(), {}),
+    ("PRH", EngineConfig(), {}),
+    ("NPO", EngineConfig(), {}),
+    ("PRO", EngineConfig(), {"stats": None}),          # non-unique R
+    ("PRO", EngineConfig(materialize=True), {}),
+    ("PRO", EngineConfig(), {"key8b": True}),
+    ("PRO", EngineConfig(), {"bloom": True}),
+])
+def test_unported_tiers_raise(algo, cfg, kw):
+    rk, rp, sk, sp = _workload(n_r=500, n_s=2000)
+    stats = kw.get("stats", KeyStats(1, 500, is_unique=True))
+    R = Relation.from_numpy(rk, rp, stats=stats, key8b=kw.get("key8b", False))
+    S = Relation.from_numpy(sk, sp, key8b=kw.get("key8b", False))
+    bloom = object() if kw.get("bloom") else None
+    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+        run_join(algo, R, S, cfg, bloom)
+
+
+def test_dense_gate_needs_a_cuda_tensor():
+    """A declared dense PK goes to the dense tier only on the card; on the
+    CPU the planner keeps the kernel tier (whose twins run there)."""
+    rk, rp, _, _ = _workload(n_r=500)
+    R = Relation.from_numpy(rk, rp, stats=KeyStats(1, 500, True, True))
+    spec = registry.ALGORITHMS["PRO"]
+    assert registry.select_tier(spec, R, EngineConfig(), (1, 500)) \
+        == "cuda_radix"
+
+
+_HYGIENE = """
+import json, sys
+import hwbloomradixjoin_tpu_torch as pkg
+from hwbloomradixjoin_tpu_torch import bench
+from hwbloomradixjoin_tpu_torch.data import generator as G
+from hwbloomradixjoin_tpu_torch.kernels import _build
+from hwbloomradixjoin_tpu_torch.models import run_join
+from hwbloomradixjoin_tpu_torch.types import Relation
+p = G.WorkloadParams(r_size=2000, s_size=40000, nthreads=4, selectivity=0.5)
+rk, rp, sk, sp = G.build_workload(p)
+res, st, _ = run_join("PRO", Relation.from_numpy(rk, rp, stats=G.r_key_stats(p)),
+                      Relation.from_numpy(sk, sp))
+rec = bench.run_bench("cpu", 2000, 40000, selectivity=0.01, repeats=1, inner=1)
+print(json.dumps({"jax": [m for m in sys.modules
+                          if m in ("jax", "hwbloomradixjoin_tpu")
+                          or m.startswith(("jax.", "hwbloomradixjoin_tpu."))],
+                  "loaded": _build.is_loaded(), "build": _build.build_info,
+                  "launches": _build.LAUNCHES, "tier": st.tier,
+                  "count": res.count(), "bench": rec}))
+"""
+
+
+def test_package_imports_no_jax_builds_nothing_on_cpu():
+    """In a fresh process: the port and a CPU run of it import no jax and
+    no JAX package, build and load no kernel, and count no launches."""
+    out = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["jax"] == []
+    assert got["loaded"] is False and got["build"] == {}
+    assert set(got["launches"].values()) == {0}
+    assert got["tier"] == "cuda_radix" and got["count"] == 20000
+    assert got["bench"]["value"] > 0 and got["bench"]["unit"] == "rows/s"
+    assert "tier=cuda_radix" in got["bench"]["metric"]
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """chip_smoke.py exits non-zero and prints no result line where
+    torch.cuda.is_available() is false, and in a directory holding only
+    itself."""
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(open(script).read())
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    if not torch.cuda.is_available():
+        assert "is_available() is false" in out.stderr
+
+
+def test_print_timing_matches_jax():
+    """The reference's stdout timing block, byte for byte."""
+    from hwbloomradixjoin_tpu.utils.timing import JoinStats as JJoinStats
+    from hwbloomradixjoin_tpu.utils.timing import print_timing as jprint
+    from hwbloomradixjoin_tpu_torch.utils.timing import JoinStats, print_timing
+
+    kw = dict(total_usec=7404.25, build_usec=781.5, part_usec=6004.8,
+              probe_usec=788.2, result=128_000_000, num_s_tuples=128_000_000,
+              s_after_filter=None)
+    for extra in ({}, {"s_after_filter": 1_280_000}):
+        want = jprint(JJoinStats(**{**kw, **extra}))
+        got = print_timing(JoinStats(**{**kw, **extra}))
+        assert got == want
+    assert JoinStats(**kw).nsec_per_tuple == JJoinStats(**kw).nsec_per_tuple
