@@ -28,6 +28,8 @@
 #include <cub/block/block_reduce.cuh>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -79,19 +81,6 @@ __global__ void bitmap_probe_kernel(const unsigned* __restrict__ bm,
   if (threadIdx.x == 0 && total) atomicAdd(out, total);
 }
 
-unsigned grid_for(long long n4) {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
-  const long long want = (n4 + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * 8;
-  return (unsigned)(want < 1 ? 1 : (want < cap ? want : cap));
-}
-
 }  // namespace
 
 extern "C" {
@@ -103,7 +92,7 @@ int hbrj_bitmap_build(const int* r, long long n, int* bm, long long nwords, int 
   if (err) return (int)err;
   const long long n4 = n / 4;
   if (n4) {
-    bitmap_build_kernel<<<grid_for(n4), kThreads, 0, stream>>>(
+    bitmap_build_kernel<<<hbrj::grid_for(n4, kThreads), kThreads, 0, stream>>>(
         reinterpret_cast<const int4*>(r), n4, reinterpret_cast<unsigned*>(bm), lo, hi,
         shift, sl_words);
   }
@@ -118,7 +107,7 @@ int hbrj_bitmap_probe(const int* bm, const int* s, long long n,
   if (err) return (int)err;
   const long long n4 = n / 4;
   if (n4) {
-    bitmap_probe_kernel<<<grid_for(n4), kThreads, 0, stream>>>(
+    bitmap_probe_kernel<<<hbrj::grid_for(n4, kThreads), kThreads, 0, stream>>>(
         reinterpret_cast<const unsigned*>(bm), reinterpret_cast<const int4*>(s), n4,
         out, lo, shift, F, sl_words);
   }

@@ -1,15 +1,18 @@
 // Radix partition and survivor compaction of int32 key columns (Hopper, sm_90a).
 //
 // Replaces the Pallas kernels of hwbloomradixjoin_tpu/ops/radix.py:
-//   hbrj_partition  <- partition_pass (_partition_kernel_for, radix.py:428)
-//   hbrj_compact    <- compact_pass   (_compact_kernel_for,   radix.py:281)
+//   hbrj_partition  <- partition_pass    (_partition_kernel_for, radix.py:428)
+//                      partition_pass_kv (the same body with a payload, radix.py:519)
+//   hbrj_compact    <- compact_pass      (_compact_kernel_for,   radix.py:281)
 //
 // Contract (identical to the TPU kernels, checked bit-for-bit against the
 // plain PyTorch twins in ops/radix.py):
 //   * keys arrive as nchunks chunks of chunk_elems int32 each;
 //   * partition: each chunk is reordered by category, stably (elements of one
 //     category keep their input order), and starts[c][j] = number of elements
-//     of chunk c whose category is < j, for every j < cat_words;
+//     of chunk c whose category is < j, for every j < cat_words; an optional
+//     payload column moves by the same permutation (pays_out[pos] = pays[i]
+//     beside out[pos] = keys[i]), which adds one read and one write stream;
 //   * compact: each chunk's keys in [lo, hi] move to its head, stably, the rest
 //     of its first cap_elems slots is PAD, and all 8*128 count words of the
 //     chunk hold its live count.
@@ -125,7 +128,9 @@ __global__ void partition_scan(int* __restrict__ hist, int* __restrict__ starts,
 // Stable scatter: each warp replays its tile in the same order as
 // partition_hist, starting every category at the tile's scanned offset.
 __global__ void partition_scatter(const int* __restrict__ keys,
+                                  const int* __restrict__ pays,
                                   const int* __restrict__ offs, int* __restrict__ out,
+                                  int* __restrict__ pays_out,
                                   long long ntiles_total, int ntiles, int tile,
                                   int ncats, int chunk_elems, CatParams p) {
   extern __shared__ int smem[];
@@ -140,11 +145,17 @@ __global__ void partition_scatter(const int* __restrict__ keys,
   __syncwarp();
   const int* src = keys + gt * tile;
   int* dst = out + c * chunk_elems;
+  const int* psrc = pays ? pays + gt * tile : nullptr;
+  int* pdst = pays ? pays_out + c * chunk_elems : nullptr;
   const unsigned earlier = (1u << lane) - 1u;
   for (int base = 0; base < tile; base += 4 * kWarp) {
-    int k[4];
+    int k[4], v[4] = {0, 0, 0, 0};
 #pragma unroll
     for (int j = 0; j < 4; ++j) k[j] = src[base + j * kWarp + lane];
+    if (psrc) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = psrc[base + j * kWarp + lane];
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int cat = category(k[j], p);
@@ -154,6 +165,7 @@ __global__ void partition_scatter(const int* __restrict__ keys,
       if (lane == __ffs(peers) - 1) cnt[cat] += __popc(peers);
       __syncwarp();
       dst[pos] = k[j];
+      if (pdst) pdst[pos] = v[j];
     }
   }
 }
@@ -206,8 +218,10 @@ const char* hbrj_error_string(int err) {
 
 // keys: nchunks*chunk_elems int32; out: same size; starts: nchunks*cat_words;
 // hist: nchunks * ncats * (chunk_elems / tile) int32 scratch.
-// tile must divide chunk_elems and be a multiple of 128.
-int hbrj_partition(const int* keys, int* out, int* starts, int* hist,
+// pays, pays_out: a payload column moved with the keys (same size), or both
+// null.  tile must divide chunk_elems and be a multiple of 128.
+int hbrj_partition(const int* keys, const int* pays, int* out, int* pays_out,
+                   int* starts, int* hist,
                    long long nchunks, int chunk_elems, int tile, int lo, int hi,
                    int has_hi, int shift, int part_bits, int pad_cat, int cat_words,
                    cudaStream_t stream) {
@@ -232,7 +246,8 @@ int hbrj_partition(const int* keys, int* out, int* starts, int* hist,
       hist, starts, ncats, ntiles, chunk_elems, cat_words);
   if ((err = cudaGetLastError())) return (int)err;
   partition_scatter<<<grid, kTileWarps * kWarp, smem, stream>>>(
-      keys, hist, out, ntiles_total, ntiles, tile, ncats, chunk_elems, p);
+      keys, pays, hist, out, pays_out, ntiles_total, ntiles, tile, ncats, chunk_elems,
+      p);
   return (int)cudaGetLastError();
 }
 

@@ -1,20 +1,23 @@
-"""Deterministic relation generators: the uniform PK/FK workloads, numpy only.
+"""Deterministic relation generators: uniform, non-unique and full-range.
 
 Counterpart of ``hwbloomradixjoin_tpu/data/generator.py`` (lines 43-116 and
-146-218), copied rather than imported because importing the JAX package
+126-218), copied rather than imported because importing the JAX package
 imports jax.  ``parallel_create_relation`` reproduces the reference's
 threshold-selectivity generator multiset-exactly (generator.c:161-221,
-304-415); the key order is a seeded permutation (the reference's shuffle is
-time-seeded).  The Zipf, non-unique and full-range generators replay glibc
-rand() streams through the JAX package's native library and arrive with
-ROADMAP slice 3 (non-unique and full-range) and slice 11 (Zipf sweeps).
+304-415) in numpy; the key order is a seeded permutation (the reference's
+shuffle is time-seeded).  The non-unique and full-range generators replay
+glibc rand() streams through the port's copy of the native binding
+(``data/native.py``).  The Zipf generator arrives with ROADMAP slice 11.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
+
+from hwbloomradixjoin_tpu_torch.data import native
 
 INT_MAX = 2147483647
 PAGE_SIZE = 4096
@@ -95,6 +98,27 @@ def parallel_create_relation(num_tuples: int, nthreads: int, maxid: int,
     return keys, payloads
 
 
+def create_relation_nonunique(seed: int, num_tuples: int, maxid: int):
+    """Keys uniform in [0, maxid) from rand() seeded `seed`; payload = rid."""
+    keys = native.random_gen(seed, num_tuples, 0, maxid)
+    return keys, np.arange(num_tuples, dtype=np.int32)
+
+
+def create_relation_nonunique_from_pk(seed: int, pk_keys: np.ndarray,
+                                      num_tuples: int, threshold: int,
+                                      selectivity: float):
+    keys = native.nonunique_from_pk(seed, pk_keys, num_tuples, threshold,
+                                    selectivity)
+    return keys, np.arange(num_tuples, dtype=np.int32)
+
+
+def create_relation_fk_from_pk(seed: int, pk_keys: np.ndarray,
+                               pk_pays: np.ndarray, num_tuples: int,
+                               threshold: int, selectivity: float):
+    return native.fk_from_pk(seed, pk_keys, pk_pays, num_tuples, threshold,
+                             selectivity)
+
+
 @dataclasses.dataclass(frozen=True)
 class WorkloadParams:
     """Relation-construction parameters, mirroring param_t (src/main.c)."""
@@ -114,12 +138,24 @@ class WorkloadParams:
 def build_workload(p: WorkloadParams):
     """Build (R_keys, R_pays, S_keys, S_pays) as main.c:416-467 does.
 
-    Uniform only: R = parallel PK over [1, r_size]; S = parallel FK with
-    selectivity threshold r_size.
+    - default: R = parallel PK over [1, r_size]; S = parallel FK with
+      selectivity threshold r_size (Zipf S, skew > 0: ROADMAP slice 11);
+    - full-range: R non-unique over [0, ceil(INT_MAX*sel)), S = fk_from_pk;
+    - non-unique: R non-unique over [0, min(r_size, ceil(INT_MAX*sel))),
+      S = nonunique_from_pk.
     """
-    if p.fullrange_keys or p.nonunique_keys:
-        raise NotImplementedError(
-            "full-range / non-unique generators: ROADMAP slice 3")
+    if p.fullrange_keys:
+        threshold = math.ceil(INT_MAX * p.selectivity)
+        rk, rp = create_relation_nonunique(p.r_seed, p.r_size, threshold)
+        sk, sp = create_relation_fk_from_pk(p.s_seed, rk, rp, p.s_size,
+                                            threshold, p.selectivity)
+        return rk, rp, sk, sp
+    if p.nonunique_keys:
+        threshold = min(p.r_size, math.ceil(INT_MAX * p.selectivity))
+        rk, rp = create_relation_nonunique(p.r_seed, p.r_size, threshold)
+        sk, sp = create_relation_nonunique_from_pk(p.s_seed, rk, p.s_size,
+                                                   threshold, p.selectivity)
+        return rk, rp, sk, sp
     if p.skew > 0:
         raise NotImplementedError("Zipf generator: ROADMAP slice 11")
     tb = 16 if p.key8b else 8

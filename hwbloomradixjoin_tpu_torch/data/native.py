@@ -1,0 +1,118 @@
+"""ctypes binding to the native host generators and the ground-truth join.
+
+The port's own copy of ``hwbloomradixjoin_tpu/data/native.py`` (lines
+29-122), cut to what the port needs: the glibc-rand()-driven non-unique and
+full-range generators and ``ref_join``.  The library is compiled from the
+repository's ``native/hbrj_native.cpp`` with ``g++`` (the flags of
+``native/Makefile``) at first use, into the package's git-ignored ``build/``
+directory under a name that hashes the source and flags; nothing is written
+into ``native/``.  Importing this module builds nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+SOURCE = PKG_DIR.parent / "native" / "hbrj_native.cpp"
+BUILD_DIR = PKG_DIR / "build"
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-fopenmp", "-Wall", "-Wextra",
+             "-shared")
+
+_lock = threading.Lock()
+_lib = None
+
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+
+
+def build() -> Path:
+    """Compile the native library into BUILD_DIR (no-op when up to date)."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    digest.update(SOURCE.read_bytes())
+    so = BUILD_DIR / f"libhbrj_native_{digest.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded native library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            dll = ctypes.CDLL(str(build()))
+            dll.hbrj_random_gen.argtypes = [
+                ctypes.c_uint32, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, _i32p]
+            dll.hbrj_nonunique_from_pk.argtypes = [
+                ctypes.c_uint32, _i32p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_double, _i32p]
+            dll.hbrj_fk_from_pk.argtypes = [
+                ctypes.c_uint32, _i32p, _i32p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_double, _i32p, _i32p]
+            dll.hbrj_ref_join.argtypes = [
+                _i32p, _i32p, ctypes.c_int64, _i32p, _i32p, ctypes.c_int64,
+                _u64p]
+            for fn in (dll.hbrj_random_gen, dll.hbrj_nonunique_from_pk,
+                       dll.hbrj_fk_from_pk, dll.hbrj_ref_join):
+                fn.restype = None
+            _lib = dll
+        return _lib
+
+
+def random_gen(seed: int, n: int, minid: int, maxid: int) -> np.ndarray:
+    """n keys uniform in [minid, maxid) from glibc rand() seeded `seed`."""
+    out = np.empty(n, dtype=np.int32)
+    lib().hbrj_random_gen(seed & 0xFFFFFFFF, n, minid, maxid, out)
+    return out
+
+
+def nonunique_from_pk(seed: int, pk_keys: np.ndarray, n: int, threshold: int,
+                      selectivity: float) -> np.ndarray:
+    """n keys: a (1 - selectivity) share above threshold, the rest drawn from
+    pk_keys, then shuffled (the reference's nonunique_from_pk)."""
+    out = np.empty(n, dtype=np.int32)
+    pk = np.ascontiguousarray(pk_keys, dtype=np.int32)
+    lib().hbrj_nonunique_from_pk(seed & 0xFFFFFFFF, pk, len(pk), n, threshold,
+                                 selectivity, out)
+    return out
+
+
+def fk_from_pk(seed: int, pk_keys: np.ndarray, pk_pays: np.ndarray, n: int,
+               threshold: int, selectivity: float):
+    """(keys, payloads): pk tuples tiled below, uniform keys above the
+    threshold, keys shuffled (the reference's --full-range FK side)."""
+    ok = np.empty(n, dtype=np.int32)
+    op = np.empty(n, dtype=np.int32)
+    pk = np.ascontiguousarray(pk_keys, dtype=np.int32)
+    pp = np.ascontiguousarray(pk_pays, dtype=np.int32)
+    lib().hbrj_fk_from_pk(seed & 0xFFFFFFFF, pk, pp, len(pk), n, threshold,
+                          selectivity, ok, op)
+    return ok, op
+
+
+def ref_join(r_keys, r_pay, s_keys, s_pay):
+    """Ground-truth join: (count, sum of matched R payloads, sum of matched
+    S payloads * multiplicity), the sums in uint64 (not reduced)."""
+    out = np.zeros(3, dtype=np.uint64)
+    rk = np.ascontiguousarray(r_keys, np.int32)
+    sk = np.ascontiguousarray(s_keys, np.int32)
+    rp = np.ascontiguousarray(r_pay, np.int32)
+    sp = np.ascontiguousarray(s_pay, np.int32)
+    lib().hbrj_ref_join(rk, rp, len(rk), sk, sp, len(sk), out)
+    return int(out[0]), int(out[1]), int(out[2])

@@ -1,11 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources in ``hwbloomradixjoin_tpu_torch/csrc/*.cu`` are compiled by
-``nvcc`` for Hopper (``sm_90a``) into ONE shared library with a plain C
-interface, at first use, and loaded with ``ctypes``.  Nothing is built or
-loaded when the package is imported, so it imports on machines without a GPU.
-The library lands in ``hwbloomradixjoin_tpu_torch/build/`` under a name that
-hashes the sources and flags, so an edited source is rebuilt and an unchanged
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, and linked into ONE shared library with a plain C interface, at
+first use, and loaded with ``ctypes``.  Nothing is built or loaded when the
+package is imported, so it imports on machines without a GPU.  The library
+lands in ``hwbloomradixjoin_tpu_torch/build/`` under a name that hashes the
+sources, headers and flags, so an edited source is rebuilt and an unchanged
 one is reused.
 
 Every C entry point takes raw device pointers and the CUDA stream as
@@ -31,21 +32,25 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 # One count per kernel wrapper: +1 each time the wrapper launches its kernel
 # on the card (the CPU twins never count).  Reset with reset_launches().
 LAUNCHES = {"partition": 0, "compact": 0, "bitmap_build": 0,
-            "bitmap_probe": 0}
+            "bitmap_probe": 0, "partition_kv": 0, "table_build": 0,
+            "table_probe": 0}
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "hbrj_partition": [_vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _i, _i, _i,
-                       _i, _i, _vp],
+    "hbrj_partition": [_vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _i,
+                       _i, _i, _i, _i, _vp],
     "hbrj_compact": [_vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
     "hbrj_bitmap_build": [_vp, _ll, _vp, _ll, _i, _i, _i, _ll, _vp],
     "hbrj_bitmap_probe": [_vp, _vp, _ll, _vp, _i, _i, _i, _ll, _vp],
+    "hbrj_table_build": [_vp, _vp, _ll, _vp, _vp, _ll, _i, _i, _i, _ll, _vp],
+    "hbrj_table_probe": [_vp, _vp, _vp, _vp, _ll, _vp, _i, _i, _i, _ll, _vp],
 }
 
 _lock = threading.Lock()
@@ -71,11 +76,25 @@ def _nvcc() -> str:
     return path
 
 
+def _run_all(cmds: list) -> str:
+    """Run the commands concurrently; wait for all, raise if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [(cmd, proc.returncode, log)
+              for cmd, proc, log in zip(cmds, procs, logs) if proc.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(cmd)} -> {rc}\n{log}" for cmd, rc, log in failed))
+    return "".join(logs)
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the build directory (no-op when up to date)."""
     srcs = sorted(CSRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     so = BUILD_DIR / f"libhbrj_kernels_{digest.hexdigest()[:16]}.so"
@@ -83,17 +102,21 @@ def build() -> Path:
         build_info.update(path=str(so), seconds=0.0, log="")
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}"
-                           f"\n{proc.stderr}")
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(srcs, objs)])
+        log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, so)
-    build_info.update(path=str(so), seconds=seconds,
-                      log=proc.stdout + proc.stderr)
+    build_info.update(path=str(so), seconds=time.perf_counter() - t0, log=log)
     return so
 
 

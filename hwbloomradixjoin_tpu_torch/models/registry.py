@@ -1,10 +1,12 @@
 """Algorithm registry, the tier planner and run_join.
 
 Counterpart of ``hwbloomradixjoin_tpu/models/registry.py`` (lines 82-173,
-344-443, 632-791).  ``select_tier`` is ported whole; the radix engine's tier
-is ``cuda_radix`` (the JAX package's ``pallas_radix``).  A tier runs its CUDA
-kernels on tensors on the card and their plain twins on CPU tensors, so CPU
-tests walk the same planner path as the card.  Tiers whose code is not
+344-529, 632-791).  ``select_tier`` is ported whole; the kernel tiers are
+``cuda_radix`` (the JAX package's ``pallas_radix``: PRO/RJ over a unique
+build side) and ``cuda_prho``/``cuda_prh``/``cuda_npo`` (its ``pallas_prho``
+/``pallas_prh``/``pallas_npo``: the count-table engines).  A tier runs its
+CUDA kernels on tensors on the card and their plain twins on CPU tensors, so
+CPU tests walk the same planner path as the card.  Tiers whose code is not
 ported yet raise NotImplementedError naming their ROADMAP slice.
 
 Timing: every phase and the whole join are timed on the device (CUDA events
@@ -18,7 +20,8 @@ import dataclasses
 import time
 
 from hwbloomradixjoin_tpu_torch.config import EngineConfig
-from hwbloomradixjoin_tpu_torch.ops import bitmap_join, ht_join, xla_join
+from hwbloomradixjoin_tpu_torch.ops import (bitmap_join, ht_join, prho_join,
+                                            xla_join)
 from hwbloomradixjoin_tpu_torch.types import JoinResult, Relation
 from hwbloomradixjoin_tpu_torch.utils.timing import JoinStats, time_usec
 
@@ -31,9 +34,6 @@ BITMAP_MAX_SPAN = 1 << 31
 
 # Tiers select_tier can pick whose engines are not ported yet.
 UNPORTED_TIERS = {
-    "cuda_prho": "count-table engines (PRHO/PRH/NPO), ROADMAP slice 3",
-    "cuda_prh": "count-table engines (PRHO/PRH/NPO), ROADMAP slice 3",
-    "cuda_npo": "count-table engines (PRHO/PRH/NPO), ROADMAP slice 3",
     "materialize": "materialization, ROADMAP slice 4",
     "key8b": "KEY_8B (16-byte tuples), ROADMAP slice 6",
     "materialize8b": "KEY_8B materialization, ROADMAP slices 4 and 6",
@@ -115,14 +115,42 @@ def select_tier(spec: AlgoSpec, R: Relation, cfg: EngineConfig,
     return "ht"
 
 
+def key_ranges(R: Relation):
+    """(key_range, wide_range) of R for select_tier: the count tables' range
+    (None past HT_MAX_SLOTS) and the bitmap engine's."""
+    key_range = _key_range(R) if R.key_hi is None else None
+    wide_range = key_range
+    if wide_range is None and R.key_hi is None:
+        wide_range = _key_range(R, BITMAP_MAX_SPAN, require_nonneg=True)
+    return key_range, wide_range
+
+
+def plan_kernel_join(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
+                     key_range, wide_range):
+    """The plan of a kernel tier over R and S, on S's device.
+
+    cuda_radix plans the bitmap join over wide_range; the count-table tiers
+    plan over key_range and return None when the multiplicity guard
+    declines.
+    """
+    bits = cfg.radix.num_radix_bits
+    if tier == "cuda_radix":
+        return bitmap_join.plan_radix_join(R.key, S.key, *wide_range,
+                                           device=S.device,
+                                           num_radix_bits=bits)
+    if tier == "cuda_prh":
+        return prho_join.plan_prh_join(R.key, R.payload, S.key, *key_range,
+                                       device=S.device, num_radix_bits=bits)
+    return prho_join.plan_prho_join(R.key, R.payload, S.key, S.payload,
+                                    *key_range, device=S.device,
+                                    num_radix_bits=bits)
+
+
 def _run_cuda_radix(R: Relation, S: Relation, cfg: EngineConfig,
-                    inner_repeats: int, key_range):
+                    inner_repeats: int, wide_range):
     """PRO/RJ on the radix engine: partition + exact-bitmap probe."""
-    lo, hi = key_range
     t0 = time.perf_counter()
-    plan = bitmap_join.plan_radix_join(
-        R.key, S.key, lo, hi, device=S.device,
-        num_radix_bits=cfg.radix.num_radix_bits)
+    plan = plan_kernel_join("cuda_radix", R, S, cfg, None, wide_range)
     compile_usec = (time.perf_counter() - t0) * 1e6
     phases = {name: time_usec(fn, plan.device)
               for name, fn in plan.phase_fns().items()}
@@ -139,6 +167,38 @@ def _run_cuda_radix(R: Relation, S: Relation, cfg: EngineConfig,
         tier="cuda_radix", raw_total_usec=total_usec, floor_usec=0.0,
         phases=phases)
     return JoinResult(total_results=cnt), stats, (0, 0)
+
+
+def _run_cuda_prho(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
+                   inner_repeats: int, key_range):
+    """PRHO/PRH/NPO (and PRO/RJ over a non-unique R) on the count-table
+    engine: partition with payloads, table build, S partition, table probe.
+
+    NPO's phase attribution follows its two-phase contract: the S partition
+    counts as probe work and no partition time is reported (JAX
+    registry.py:518-520).  Returns None when the planner's multiplicity
+    guard declines, and the caller falls back as the JAX package does.
+    """
+    t0 = time.perf_counter()
+    plan = plan_kernel_join(tier, R, S, cfg, key_range, None)
+    if plan is None:
+        return None
+    compile_usec = (time.perf_counter() - t0) * 1e6
+    phases = {name: time_usec(fn, plan.device)
+              for name, fn in plan.phase_fns().items()}
+    total_usec = time_usec(plan.full, plan.device,
+                           calls=max(1, inner_repeats))
+    cnt, r_sum, s_sum = plan.full_sums()
+    part_usec, probe_usec = phases["s_partition"], phases["probe"]
+    if tier == "cuda_npo":
+        part_usec, probe_usec = 0.0, probe_usec + part_usec
+    stats = JoinStats(
+        total_usec=total_usec,
+        build_usec=phases["r_partition"] + phases["build"],
+        part_usec=part_usec, probe_usec=probe_usec, result=cnt,
+        num_s_tuples=S.capacity, compile_usec=compile_usec, tier=tier,
+        raw_total_usec=total_usec, floor_usec=0.0, phases=phases)
+    return JoinResult(total_results=cnt), stats, (r_sum, s_sum)
 
 
 def _run_portable(tier: str, R: Relation, S: Relation, inner_repeats: int,
@@ -182,21 +242,24 @@ def run_join(name: str, R: Relation, S: Relation,
              inner_repeats: int = 1):
     """Execute a named join algorithm; returns (JoinResult, JoinStats, sums).
 
-    sums are the (R, S) payload checksums mod 2^32 on the portable tiers and
-    (0, 0) on the count-only radix tier, as in the JAX package.
+    sums are the (R, S) payload checksums mod 2^32 on the count-table and
+    portable tiers (S's is 0 on cuda_prh) and (0, 0) on the count-only radix
+    tier, as in the JAX package.
     """
     spec = ALGORITHMS[name]
     if spec.family == "npo":
         bloom_args = None  # B_NPO wrappers ignore the filter (main.c:296-312)
     if bloom_args is not None:
         raise NotImplementedError("bloom pre-filter: ROADMAP slice 5")
-    key_range = _key_range(R) if R.key_hi is None else None
-    wide_range = key_range
-    if wide_range is None and R.key_hi is None:
-        wide_range = _key_range(R, BITMAP_MAX_SPAN, require_nonneg=True)
+    key_range, wide_range = key_ranges(R)
     tier = select_tier(spec, R, cfg, key_range, wide_range)
     if tier in UNPORTED_TIERS:
         raise NotImplementedError(f"tier {tier}: {UNPORTED_TIERS[tier]}")
     if tier == "cuda_radix":
         return _run_cuda_radix(R, S, cfg, inner_repeats, wide_range)
+    if tier in ("cuda_prho", "cuda_prh", "cuda_npo"):
+        out = _run_cuda_prho(tier, R, S, cfg, inner_repeats, key_range)
+        if out is not None:
+            return out
+        tier = "sortscan" if tier == "cuda_prh" else "ht"
     return _run_portable(tier, R, S, inner_repeats, key_range)

@@ -172,7 +172,7 @@ def bitmap_probe_count(bitmap: torch.Tensor, s_part: torch.Tensor, lo: int,
 
 def plan_bitmap_build(r_key, lo: int, hi: int, part_bits: int, shift: int,
                       sl_rows: int, chunk_rows: int = CHUNK_ROWS,
-                      device=None):
+                      device="cuda"):
     """Plan the R-side build: returns (rk_in, rgeom).
 
     rk_in is R chunk-padded with PAD; rgeom partitions it, dropping the pad
@@ -228,7 +228,8 @@ class RadixJoinPlan:
         chunk_rows = self.sgeom.chunk_rows
         ck, _ = radix_ops.compact_pass(self.sk_in, self.lo, self.hi,
                                        chunk_rows, cap_rows=self.cap_rows)
-        return radix_ops._chunk_pad(ck.view(-1), chunk_rows * LANES)
+        return radix_ops._chunk_pad(ck.view(-1), chunk_rows * LANES,
+                                    ck.device)
 
     def s_partition(self, s_eff: torch.Tensor):
         return radix_ops.partition_pass(s_eff, self.sgeom)
@@ -267,21 +268,19 @@ class RadixJoinPlan:
         return fns
 
 
-def plan_radix_join(r_key, s_key, lo: int, hi: int, device=None,
+def plan_radix_join(r_key, s_key, lo: int, hi: int, device="cuda",
                     chunk_rows: int = CHUNK_ROWS,
                     num_radix_bits: Optional[int] = None,
                     survivor_frac: Optional[float] = None) -> RadixJoinPlan:
     """Plan the radix join of unique R keys in [lo, hi] with S.
 
     r_key/s_key: numpy arrays (padded on the host) or tensors.  device: where
-    the join runs (default: s_key's device, or the CPU for numpy).
+    the join runs, the card unless the caller asks for the CPU.
     survivor_frac: fraction of S inside [lo, hi]; None measures it (one host
     sync).  Under half triggers survivor compaction when the compacted stream
     is at most 60% of S; the per-chunk cap comes from one plan-time
     compaction's live counts (a second host sync).  As in the JAX package.
     """
-    if device is None:
-        device = s_key.device if isinstance(s_key, torch.Tensor) else "cpu"
     device = torch.device(device)
     chunk = chunk_rows * LANES
     sk_in = radix_ops._chunk_pad(s_key, chunk, device)

@@ -1,0 +1,319 @@
+"""The count-table engines: PRHO, PRH, NPO and PRO over a non-unique build.
+
+Counterpart of ``hwbloomradixjoin_tpu/ops/prho_join.py:1-645``.  The join is
+
+    R partition (keys + payloads) -> table build -> S partition
+    (keys + payloads; keys only for PRH) -> table probe
+
+with R's key range [lo, hi] split into 2^part_bits buckets of 2^shift keys;
+bucket b owns the slots [b*slice_rows*128, (b+1)*slice_rows*128) of two
+``(F * slice_rows, 128)`` int32 tables, the JAX package's layout: each key's
+multiplicity in R, and the sum of its R payloads mod 2^32.  Counts carry
+multiplicity, so the build side may repeat keys; the probe returns the match
+count and both payload checksums, all sums mod 2^32 like the reference's
+unsigned accumulators.
+
+``plan_geometry_counts`` is the JAX package's, unchanged, so both packages
+plan the same layout.  ``table_build`` and ``probe_count_sums`` launch the
+CUDA kernels of ``csrc/prho_join.cu`` for tensors on the card and run their
+plain twins (``build_tables``, ``probe_count_sums_plain``) for tensors on the
+CPU.  Like the bitmap kernels they stream their input flat, so the TPU
+kernels' DMA windows (``derive_descs``, ``_probe_geom``) have no counterpart.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from hwbloomradixjoin_tpu_torch.kernels import _build
+from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
+from hwbloomradixjoin_tpu_torch.ops.bitmap_join import CHUNK_ROWS
+from hwbloomradixjoin_tpu_torch.ops.radix import LANES
+
+MAX_SLICE_ROWS = 128       # slice covers 2^14 keys = 64 KiB of counts
+MASK32 = 0xFFFFFFFF
+
+# The TPU build deposits payloads as four 8-bit limbs in f32, exact while a
+# slot's multiplicity stays below this; at or above it the planner returns
+# None and the registry falls back.  The H100 atomics have no such limit;
+# the guard stays so both packages choose the same tier (ROADMAP §3).
+MULTIPLICITY_GUARD = 65000
+
+
+def plan_geometry_counts(lo: int, hi: int,
+                         num_radix_bits: Optional[int] = None):
+    """(part_bits, shift, slice_rows) for word-granular (count) slices.
+
+    Identical to the JAX package's plan_geometry_counts.
+    """
+    span = hi - lo + 1
+    range_bits = max((max(span - 1, 1)).bit_length(), 7)
+    lo_bits = max(range_bits - 14, 0)
+    hi_bits = max(range_bits - 7, 0)
+    part_bits = lo_bits if num_radix_bits is None else (
+        min(max(num_radix_bits, lo_bits), hi_bits))
+    shift = range_bits - part_bits            # in [7, 14]
+    slice_rows = max(1 << (shift - 7), 8)     # 8-row Mosaic alignment
+    return part_bits, shift, slice_rows
+
+
+def _to_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 with the same low 32 bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def build_tables(r_key: torch.Tensor, r_pay: torch.Tensor, lo: int, hi: int,
+                 part_bits: int, shift: int, slice_rows: int):
+    """Plain twin of the build: (count, paysum) tables, (F*slice_rows, 128).
+
+    Scatter-adds in int64 over R's keys in [lo, hi]; the payload sums wrap
+    mod 2^32 and both tables are returned as int32.  Slice tails stay zero.
+    """
+    nslots = (1 << part_bits) * slice_rows * LANES
+    key = r_key.reshape(-1).long()
+    ok = (key >= lo) & (key <= hi)
+    norm = key[ok] - lo
+    slot = (norm >> shift) * (slice_rows * LANES) + (norm & ((1 << shift) - 1))
+    cnt = torch.zeros(nslots, dtype=torch.int64, device=r_key.device)
+    cnt.index_add_(0, slot, torch.ones_like(slot))
+    pay = torch.zeros(nslots, dtype=torch.int64, device=r_key.device)
+    pay.index_add_(0, slot, r_pay.reshape(-1)[ok].long() & MASK32)
+    rows = nslots // LANES
+    return (_to_int32(cnt & MASK32).view(rows, LANES),
+            _to_int32(pay & MASK32).view(rows, LANES))
+
+
+def _check_slices(shift: int, slice_rows: int) -> None:
+    """A bucket's 2^shift keys must fit its slice, or the kernels' slots run
+    into the next slice (past the tables' end for the last bucket)."""
+    if 1 << shift > slice_rows * LANES:
+        raise ValueError(f"2^{shift} keys a bucket exceed a slice of "
+                         f"{slice_rows} rows")
+
+
+def table_build(r_part: torch.Tensor, rp_part: torch.Tensor, lo: int, hi: int,
+                part_bits: int, shift: int, slice_rows: int):
+    """Build the (count, paysum) tables from partitioned R and its payloads.
+
+    Replaces the Pallas build_tables_pallas (prho_join.py:185).
+    """
+    _check_slices(shift, slice_rows)
+    if (hi - lo) >> shift >= 1 << part_bits:
+        raise ValueError(f"[{lo}, {hi}] spans more than 2^{part_bits} "
+                         f"buckets of 2^{shift} keys")
+    if r_part.device.type == "cpu":
+        return build_tables(r_part, rp_part, lo, hi, part_bits, shift,
+                            slice_rows)
+    _build.check_cuda(r_part, rp_part)
+    if rp_part.shape != r_part.shape:
+        raise ValueError(f"payloads {tuple(rp_part.shape)} beside keys "
+                         f"{tuple(r_part.shape)}")
+    shape = ((1 << part_bits) * slice_rows, LANES)
+    cnt = torch.empty(shape, dtype=torch.int32, device=r_part.device)
+    pay = torch.empty_like(cnt)
+    _build.launch("table_build", "hbrj_table_build", r_part.device,
+                  r_part.data_ptr(), rp_part.data_ptr(), r_part.numel(),
+                  cnt.data_ptr(), pay.data_ptr(), cnt.numel(), lo, hi, shift,
+                  slice_rows * LANES)
+    return cnt, pay
+
+
+def probe_count_sums_plain(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
+                           s_part: torch.Tensor, sp_part, lo: int, shift: int,
+                           part_bits: int, slice_rows: int) -> torch.Tensor:
+    """Plain twin of the probe: int64 (count, r_sum, s_sum), sums mod 2^32.
+
+    A key counts when its ARITHMETIC bucket (int32-wrapped key - lo) >> shift
+    lies in [0, F), as the TPU kernel's bucket test has it.  s_sum is 0
+    without S payloads (sp_part None).
+    """
+    key = s_part.reshape(-1).long()
+    norm = (key - lo + (1 << 31)) % (1 << 32) - (1 << 31)   # int32 wrap
+    bucket = norm >> shift
+    ok = (bucket >= 0) & (bucket < (1 << part_bits))
+    slot = torch.where(ok, bucket * (slice_rows * LANES)
+                       + (norm & ((1 << shift) - 1)), 0)
+    c = cnt_tbl.reshape(-1)[slot].long() * ok
+    p = (pay_tbl.reshape(-1)[slot].long() & MASK32) * ok
+    if sp_part is None:
+        s_sum = torch.zeros((), dtype=torch.int64, device=key.device)
+    else:
+        s_sum = ((sp_part.reshape(-1).long() & MASK32) * c & MASK32).sum()
+    return torch.stack([c.sum(), p.sum() & MASK32, s_sum & MASK32])
+
+
+def probe_count_sums(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
+                     s_part: torch.Tensor, sp_part, lo: int, shift: int,
+                     part_bits: int, slice_rows: int) -> torch.Tensor:
+    """Probe partitioned S (and its payloads, or None) against the tables.
+
+    Returns a (3,) int64 tensor on s_part's device: the match count, the sum
+    of matched R payloads and the sum of S payload * multiplicity, both mod
+    2^32 (s_sum 0 without S payloads).  Replaces the Pallas probe_count_sums
+    (prho_join.py:351).
+    """
+    _check_slices(shift, slice_rows)
+    if s_part.device.type == "cpu":
+        return probe_count_sums_plain(cnt_tbl, pay_tbl, s_part, sp_part, lo,
+                                      shift, part_bits, slice_rows)
+    parts = (s_part,) if sp_part is None else (s_part, sp_part)
+    _build.check_cuda(cnt_tbl, pay_tbl, *parts)
+    nslots = (1 << part_bits) * slice_rows * LANES
+    if cnt_tbl.numel() != nslots or pay_tbl.numel() != nslots:
+        raise ValueError(f"tables of {cnt_tbl.numel()}, {pay_tbl.numel()} "
+                         f"slots for geometry ({part_bits}, {shift}, "
+                         f"{slice_rows})")
+    if sp_part is not None and sp_part.shape != s_part.shape:
+        raise ValueError(f"payloads {tuple(sp_part.shape)} beside keys "
+                         f"{tuple(s_part.shape)}")
+    out = torch.empty(3, dtype=torch.int64, device=s_part.device)
+    _build.launch("table_probe", "hbrj_table_probe", s_part.device,
+                  cnt_tbl.data_ptr(), pay_tbl.data_ptr(), s_part.data_ptr(),
+                  None if sp_part is None else sp_part.data_ptr(),
+                  s_part.numel(), out.data_ptr(), lo, shift, 1 << part_bits,
+                  slice_rows * LANES)
+    return out
+
+
+def plan_tables_build(r_key, r_pay, lo: int, hi: int, part_bits: int,
+                      shift: int, chunk_rows: int = CHUNK_ROWS,
+                      device="cuda"):
+    """Plan the R-side build: returns (rk_in, rp_in, geom).
+
+    rk_in/rp_in are R's keys and payloads chunk-padded with PAD on `device`;
+    geom partitions them (and S) with the pad category kept, as in the JAX
+    package.  PrhoPlan.r_partition and .build run the build.
+    """
+    if r_pay.shape[0] != r_key.shape[0]:
+        raise ValueError(f"{r_pay.shape[0]} payloads for {r_key.shape[0]} "
+                         "keys")
+    geom = radix_ops.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits,
+                               lo=lo, hi=hi, shift=shift)
+    chunk = chunk_rows * LANES
+    return (radix_ops._chunk_pad(r_key, chunk, device),
+            radix_ops._chunk_pad(r_pay, chunk, device), geom)
+
+
+@dataclasses.dataclass
+class PrhoPlan:
+    """A planned count-table join over device-resident, chunk-padded inputs.
+
+    full() runs the whole join (R partition, table build, S partition,
+    probe) and returns (count, r_sum, s_sum) as a (3,) int64 device tensor
+    without synchronising; full_sums() reads it back as (int, uint32,
+    uint32).  sp_in is None for PRH, whose S side moves keys only and whose
+    s_sum is 0.  phase_fns() gives one callable per phase, each re-running
+    that phase on the inputs planning produced.
+    """
+
+    rk_in: torch.Tensor
+    rp_in: torch.Tensor
+    sk_in: torch.Tensor
+    sp_in: Optional[torch.Tensor]
+    lo: int
+    hi: int
+    geom: radix_ops.RadixGeom        # R and S partition
+    slice_rows: int
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.sk_in.device
+
+    def r_partition(self):
+        return radix_ops.partition_pass_kv(self.rk_in, self.rp_in, self.geom)
+
+    def build(self, r_part):
+        g = self.geom
+        return table_build(r_part[0], r_part[1], self.lo, self.hi,
+                           g.part_bits, g.shift, self.slice_rows)
+
+    def s_partition(self):
+        """(keys, payloads or None) of partitioned S."""
+        if self.sp_in is None:
+            return radix_ops.partition_pass(self.sk_in, self.geom)[0], None
+        return radix_ops.partition_pass_kv(self.sk_in, self.sp_in,
+                                           self.geom)[:2]
+
+    def probe(self, tables, s_part) -> torch.Tensor:
+        g = self.geom
+        return probe_count_sums(tables[0], tables[1], s_part[0], s_part[1],
+                                self.lo, g.shift, g.part_bits,
+                                self.slice_rows)
+
+    def full(self) -> torch.Tensor:
+        tables = self.build(self.r_partition())
+        return self.probe(tables, self.s_partition())
+
+    def full_sums(self):
+        return tuple(self.full().tolist())
+
+    def _intermediates(self) -> dict:
+        if not self._cache:
+            r_part = self.r_partition()
+            self._cache.update(r_part=r_part, tables=self.build(r_part),
+                               s_part=self.s_partition())
+        return self._cache
+
+    def phase_fns(self) -> dict:
+        """name -> zero-argument callable re-running that phase, join order."""
+        m = self._intermediates()
+        return {"r_partition": self.r_partition,
+                "build": lambda: self.build(m["r_part"]),
+                "s_partition": self.s_partition,
+                "probe": lambda: self.probe(m["tables"], m["s_part"])}
+
+
+def _plan(r_key, r_pay, s_key, s_pay, lo: int, hi: int, device, chunk_rows,
+          num_radix_bits) -> Optional[PrhoPlan]:
+    if s_pay is not None and s_pay.shape[0] != s_key.shape[0]:
+        raise ValueError(f"{s_pay.shape[0]} payloads for {s_key.shape[0]} "
+                         "keys")
+    device = torch.device(device)
+    part_bits, shift, slice_rows = plan_geometry_counts(lo, hi,
+                                                        num_radix_bits)
+    rk_in, rp_in, geom = plan_tables_build(r_key, r_pay, lo, hi, part_bits,
+                                           shift, chunk_rows, device)
+    chunk = chunk_rows * LANES
+    plan = PrhoPlan(
+        rk_in=rk_in, rp_in=rp_in,
+        sk_in=radix_ops._chunk_pad(s_key, chunk, device),
+        sp_in=None if s_pay is None
+        else radix_ops._chunk_pad(s_pay, chunk, device),
+        lo=lo, hi=hi, geom=geom, slice_rows=slice_rows)
+    # the JAX package's exactness guard (one plan-time sync); the tables
+    # built here stay in the plan for phase timing
+    cnt_tbl = plan._intermediates()["tables"][0]
+    if int(cnt_tbl.max()) >= MULTIPLICITY_GUARD:
+        return None
+    return plan
+
+
+def plan_prho_join(r_key, r_pay, s_key, s_pay, lo: int, hi: int,
+                   device="cuda", chunk_rows: int = CHUNK_ROWS,
+                   num_radix_bits: Optional[int] = None):
+    """PRHO plan: count/pay tables + payload-moving S partition + probe.
+
+    Works for non-unique R (counts carry multiplicity).  r_*/s_*: numpy
+    arrays (padded on the host) or tensors; device: where the join runs, the
+    card unless the caller asks for the CPU.  Returns None when a key repeats
+    MULTIPLICITY_GUARD times or more, like the JAX package.
+    """
+    return _plan(r_key, r_pay, s_key, s_pay, lo, hi, device, chunk_rows,
+                 num_radix_bits)
+
+
+def plan_prh_join(r_key, r_pay, s_key, lo: int, hi: int, device="cuda",
+                  chunk_rows: int = CHUNK_ROWS,
+                  num_radix_bits: Optional[int] = None):
+    """PRH plan: PRHO's count/paysum-table engine with a keys-only S side.
+
+    The probe accumulates no S checksum, so full_sums() gives (count,
+    r_sum, 0), as in the JAX package.  Non-unique R supported; None on the
+    multiplicity guard.
+    """
+    return _plan(r_key, r_pay, s_key, None, lo, hi, device, chunk_rows,
+                 num_radix_bits)

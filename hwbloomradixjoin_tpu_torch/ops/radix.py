@@ -10,10 +10,11 @@ the JAX package's, bit for bit:
   number of its elements with category < j (so ``chunk`` past the last
   category); ``cat_rows`` is rounded up to a multiple of 8.
 
-``partition_pass`` and ``compact_pass`` launch the hand-written CUDA kernels
-of ``csrc/radix.cu`` for a tensor on the card and run their plain PyTorch
-twins (``*_plain``) for a tensor on the CPU.  The twins are the reference the
-kernels are checked against on the card.
+``partition_pass``, ``partition_pass_kv`` (the same pass moving a payload
+column with the keys) and ``compact_pass`` launch the hand-written CUDA
+kernels of ``csrc/radix.cu`` for a tensor on the card and run their plain
+PyTorch twins (``*_plain``) for a tensor on the CPU.  The twins are the
+reference the kernels are checked against on the card.
 """
 
 from __future__ import annotations
@@ -97,8 +98,9 @@ def geom_cat_fn(geom: RadixGeom):
     return cat_fn
 
 
-def _chunk_pad(keys, chunk_elems: int, device=None) -> torch.Tensor:
-    """Flat int32 keys padded with PAD_KEY to a chunk multiple (>= 1 chunk).
+def _chunk_pad(keys, chunk_elems: int, device="cuda") -> torch.Tensor:
+    """Flat int32 keys padded with PAD_KEY to a chunk multiple (>= 1 chunk),
+    on `device` (the card unless the caller asks for the CPU).
 
     numpy input is padded on the host before the one copy to `device`, so a
     large S never has two copies on the card.
@@ -109,8 +111,8 @@ def _chunk_pad(keys, chunk_elems: int, device=None) -> torch.Tensor:
         host = np.ascontiguousarray(keys, dtype=np.int32)
         if padded != n:
             host = np.concatenate([host, np.full(padded - n, PAD_KEY, np.int32)])
-        return torch.from_numpy(host).to(device or "cpu")
-    keys = keys.to(device=device or keys.device, dtype=torch.int32)
+        return torch.from_numpy(host).to(device)
+    keys = keys.to(device=device, dtype=torch.int32)
     if padded == n:
         return keys.contiguous()
     return torch.cat([keys, keys.new_full((padded - n,), PAD_KEY)])
@@ -124,35 +126,36 @@ def _nchunks(keys_flat: torch.Tensor, chunk_rows: int) -> int:
     return keys_flat.numel() // chunk
 
 
-def partition_pass_plain(keys_flat: torch.Tensor, geom: RadixGeom):
-    """Plain twin of partition_pass: per-chunk stable sort by category."""
+def _sort_chunks(keys_flat: torch.Tensor, geom: RadixGeom):
+    """Per-chunk stable sort by category: (order, starts) of the plain twins."""
     nchunks = _nchunks(keys_flat, geom.chunk_rows)
-    chunk = geom.chunk_rows * LANES
-    keys = keys_flat.view(nchunks, chunk)
-    cat = geom_cat_fn(geom)(keys)
-    cat_sorted, order = torch.sort(cat, dim=1, stable=True)
-    out = torch.gather(keys, 1, order)
+    keys = keys_flat.view(nchunks, geom.chunk_rows * LANES)
+    cat_sorted, order = torch.sort(geom_cat_fn(geom)(keys), dim=1, stable=True)
     j = torch.arange(geom.cat_rows * LANES, device=keys.device)
     starts = torch.searchsorted(cat_sorted, j.expand(nchunks, -1).contiguous())
-    return (out.view(nchunks * geom.chunk_rows, LANES),
-            starts.to(torch.int32).view(nchunks * geom.cat_rows, LANES))
+    return order, starts.to(torch.int32).view(nchunks * geom.cat_rows, LANES)
 
 
-def partition_pass(keys_flat: torch.Tensor, geom: RadixGeom):
-    """One radix pass: chunk-major, bucket-major keys + per-chunk starts.
+def _permute(col_flat: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    return torch.gather(col_flat.view(order.shape), 1, order).view(-1, LANES)
 
-    keys_flat: (n,) int32, n a multiple of chunk_rows*128 (PAD_KEY padded).
-    Returns (keys_out (nchunks*chunk_rows, 128), starts (nchunks*cat_rows,
-    128)).  Replaces the Pallas partition_pass (radix.py:460).
-    """
+
+def partition_pass_plain(keys_flat: torch.Tensor, geom: RadixGeom):
+    """Plain twin of partition_pass: per-chunk stable sort by category."""
+    order, starts = _sort_chunks(keys_flat, geom)
+    return _permute(keys_flat, order), starts
+
+
+def partition_pass_kv_plain(keys_flat: torch.Tensor, pays_flat: torch.Tensor,
+                            geom: RadixGeom):
+    """Plain twin of partition_pass_kv: the payloads follow the keys' order."""
+    order, starts = _sort_chunks(keys_flat, geom)
+    return _permute(keys_flat, order), _permute(pays_flat, order), starts
+
+
+def _partition_launch(keys_flat: torch.Tensor, pays_flat, geom: RadixGeom):
+    """Launch hbrj_partition (with a payload column when pays_flat is set)."""
     nchunks = _nchunks(keys_flat, geom.chunk_rows)
-    if geom.part_bits > MAX_PART_BITS:
-        raise NotImplementedError(
-            f"{geom.part_bits}-bit single-pass fan-out (> {MAX_PART_BITS}): "
-            "wide key ranges need two-pass partitioning, ROADMAP slice 2")
-    if keys_flat.device.type == "cpu":
-        return partition_pass_plain(keys_flat, geom)
-    _build.check_cuda(keys_flat)
     chunk = geom.chunk_rows * LANES
     tile = LANES * math.gcd(geom.chunk_rows, 32)     # one warp's tile
     dev = keys_flat.device
@@ -162,13 +165,59 @@ def partition_pass(keys_flat: torch.Tensor, geom: RadixGeom):
                          device=dev)
     hist = torch.empty(nchunks * geom.ncats * (chunk // tile),
                        dtype=torch.int32, device=dev)
-    _build.launch("partition", "hbrj_partition", dev,
-                  keys_flat.data_ptr(), out.data_ptr(), starts.data_ptr(),
-                  hist.data_ptr(), nchunks, chunk, tile, geom.lo,
-                  geom.hi if geom.hi is not None else 0,
+    pays_out = None if pays_flat is None else torch.empty_like(out)
+    _build.launch("partition" if pays_flat is None else "partition_kv",
+                  "hbrj_partition", dev, keys_flat.data_ptr(),
+                  None if pays_flat is None else pays_flat.data_ptr(),
+                  out.data_ptr(),
+                  None if pays_out is None else pays_out.data_ptr(),
+                  starts.data_ptr(), hist.data_ptr(), nchunks, chunk, tile,
+                  geom.lo, geom.hi if geom.hi is not None else 0,
                   int(geom.hi is not None), geom.shift, geom.part_bits,
                   int(geom.pad_cat), geom.cat_rows * LANES)
+    return out, pays_out, starts
+
+
+def _check_fanout(geom: RadixGeom) -> None:
+    if geom.part_bits > MAX_PART_BITS:
+        raise NotImplementedError(
+            f"{geom.part_bits}-bit single-pass fan-out (> {MAX_PART_BITS}): "
+            "wide key ranges need two-pass partitioning, ROADMAP slice 2")
+
+
+def partition_pass(keys_flat: torch.Tensor, geom: RadixGeom):
+    """One radix pass: chunk-major, bucket-major keys + per-chunk starts.
+
+    keys_flat: (n,) int32, n a multiple of chunk_rows*128 (PAD_KEY padded).
+    Returns (keys_out (nchunks*chunk_rows, 128), starts (nchunks*cat_rows,
+    128)).  Replaces the Pallas partition_pass (radix.py:460).
+    """
+    _nchunks(keys_flat, geom.chunk_rows)
+    _check_fanout(geom)
+    if keys_flat.device.type == "cpu":
+        return partition_pass_plain(keys_flat, geom)
+    _build.check_cuda(keys_flat)
+    out, _, starts = _partition_launch(keys_flat, None, geom)
     return out, starts
+
+
+def partition_pass_kv(keys_flat: torch.Tensor, pays_flat: torch.Tensor,
+                      geom: RadixGeom):
+    """partition_pass moving a payload column by the keys' permutation.
+
+    pays_flat: (n,) int32 beside keys_flat.  Returns (keys_out, pays_out,
+    starts); keys_out and starts equal partition_pass's.  Replaces the
+    Pallas partition_pass_kv (radix.py:499).
+    """
+    _nchunks(keys_flat, geom.chunk_rows)
+    if pays_flat.shape != keys_flat.shape:
+        raise ValueError(f"payloads {tuple(pays_flat.shape)} beside keys "
+                         f"{tuple(keys_flat.shape)}")
+    _check_fanout(geom)
+    if keys_flat.device.type == "cpu":
+        return partition_pass_kv_plain(keys_flat, pays_flat, geom)
+    _build.check_cuda(keys_flat, pays_flat)
+    return _partition_launch(keys_flat, pays_flat, geom)
 
 
 def _compact_cap(chunk_rows: int, cap_rows: Optional[int]) -> int:

@@ -1,0 +1,118 @@
+"""Device-time profile of one planned join on the card.
+
+    python -m hwbloomradixjoin_tpu_torch.profile PRHO --r 128000000 --s 128000000
+    python -m hwbloomradixjoin_tpu_torch.profile PRO --r 16000000 --non-unique
+
+Generates the workload as ``chip_smoke.py`` does (uniform PK/FK at q, or the
+non-unique generators), plans the join with the planner of the tier
+``run_join`` picks for it (``allow_dense=False``), warms the whole join, then
+traces JOINS back-to-back whole joins with ``torch.profiler``.  Prints
+one JSON line: the card, the tier, the device time of each kernel per join
+(ms, summed by kernel name), and the device's busy share: the union of
+kernel intervals over the span from the first kernel's start to the last
+one's end.  Runs on the GPU only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+
+JOINS = 5          # whole joins traced, back to back, after 3 warm ones
+
+
+def _plan(algo: str, R, S):
+    """The plan of the kernel tier run_join picks (allow_dense=False)."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig
+    from hwbloomradixjoin_tpu_torch.models import registry
+
+    cfg = EngineConfig(allow_dense=False)
+    ranges = registry.key_ranges(R)
+    tier = registry.select_tier(registry.ALGORITHMS[algo], R, cfg, *ranges)
+    if tier not in ("cuda_radix", "cuda_prho", "cuda_prh", "cuda_npo"):
+        raise SystemExit(f"profile: tier {tier} has no kernel plan")
+    plan = registry.plan_kernel_join(tier, R, S, cfg, *ranges)
+    if plan is None:
+        raise SystemExit("profile: the planner declined (multiplicity guard)")
+    return plan, tier
+
+
+def _short(name: str) -> str:
+    """Kernel name without return type, namespaces, template arguments or
+    parameters."""
+    base = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return re.sub(r"<.*", "", base).split("::")[-1].split()[-1]
+
+
+def profile_join(algo: str, r_size: int, s_size: int, selectivity: float,
+                 nonunique: bool) -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.types import Relation
+
+    dev = torch.device("cuda")
+    params = G.WorkloadParams(r_size=r_size, s_size=s_size, nthreads=8,
+                              selectivity=selectivity,
+                              nonunique_keys=nonunique)
+    rk, rp, sk, sp = G.build_workload(params)
+    R = Relation.from_numpy(rk, rp, device=dev, stats=G.r_key_stats(params))
+    S = Relation.from_numpy(sk, sp, device=dev)
+    del rk, rp, sk, sp
+    plan, tier = _plan(algo, R, S)
+    for _ in range(3):
+        plan.full()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(JOINS):
+            plan.full()
+        torch.cuda.synchronize()
+    kernels, spans = {}, []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        name = _short(ev.name)
+        kernels[name] = kernels.get(name, 0.0) + ev.time_range.elapsed_us()
+        spans.append((ev.time_range.start, ev.time_range.end))
+    if not spans:
+        raise SystemExit("profile: the trace holds no device activity")
+    spans.sort()
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return {"card": card, "algo": algo, "tier": tier, "r_size": r_size,
+            "s_size": s_size, "selectivity": selectivity,
+            "nonunique": nonunique, "joins": JOINS,
+            "ms_per_join": (end - spans[0][0]) / JOINS / 1e3,
+            "busy_share": busy / (end - spans[0][0]),
+            "kernel_ms_per_join": {k: v / JOINS / 1e3 for k, v in sorted(
+                kernels.items(), key=lambda kv: -kv[1])}}
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile: no CUDA device; the profile runs on the GPU")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("algo", choices=["PRO", "RJ", "PRH", "PRHO", "NPO",
+                                     "NPO_st"])
+    ap.add_argument("--r", type=int, default=128_000_000)
+    ap.add_argument("--s", type=int, default=128_000_000)
+    ap.add_argument("--q", type=float, default=1.0)
+    ap.add_argument("--non-unique", action="store_true")
+    a = ap.parse_args()
+    print(json.dumps(profile_join(a.algo, a.r, a.s, a.q, a.non_unique)))
+
+
+if __name__ == "__main__":
+    main()

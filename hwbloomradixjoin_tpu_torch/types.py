@@ -80,9 +80,10 @@ class Relation:
 
     @staticmethod
     def from_numpy(key: np.ndarray, payload: Optional[np.ndarray] = None,
-                   device=None, stats: Optional[KeyStats] = None,
+                   device="cuda", stats: Optional[KeyStats] = None,
                    key8b: bool = False) -> "Relation":
-        """Build a relation on `device` (default CPU) from numpy columns."""
+        """Build a relation on `device` (the card unless the caller asks for
+        the CPU) from numpy columns."""
         if payload is None:
             payload = np.arange(key.shape[0], dtype=np.int32)
         khi = phi = None

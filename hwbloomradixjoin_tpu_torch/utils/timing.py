@@ -1,10 +1,11 @@
 """Phase timing on the card and mchashjoins-compatible stdout formatting.
 
 Counterpart of ``hwbloomradixjoin_tpu/utils/timing.py``.  Device work is timed
-with CUDA events around launches on the current stream; CPU tensors (the
-plain twins) are timed with the host clock.  Every timed function is first
-warmed until two consecutive single calls agree, so builds, allocator growth
-and cold caches stay out of the numbers.
+with CUDA events around launches on the current stream, after warming until
+two consecutive single calls agree, so builds, allocator growth and cold
+caches stay out of the numbers.  CPU tensors (the plain twins) are timed once
+with the host clock after one warm call: a host time of a twin is no device
+metric, and repeating it only lengthens CPU runs.
 """
 
 from __future__ import annotations
@@ -71,9 +72,13 @@ def time_usec(fn: Callable[[], object], device: torch.device,
     """Best of _REPEATS measurements of `calls` back-to-back calls, per call.
 
     Warm-up: call fn singly until two consecutive times differ by at most
-    _STEADY (relative), or _MAX_WARM calls.
+    _STEADY (relative), or _MAX_WARM calls.  On the CPU: one warm call, one
+    measurement.
     """
     device = torch.device(device)
+    if device.type != "cuda":
+        fn()
+        return _elapsed_usec(fn, device, calls)
     prev = None
     for _ in range(_MAX_WARM):
         t = _elapsed_usec(fn, device, 1)

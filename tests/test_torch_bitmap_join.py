@@ -56,7 +56,7 @@ def test_build_matches_jax_build_bitmap(case):
     pb, shift, slr = JB.plan_geometry(lo, hi, bits)
     want = jax.jit(lambda k: JB.build_bitmap(k, lo, hi, pb, shift, slr))(
         jnp.asarray(keys))
-    plan = TB.plan_radix_join(keys, keys, lo, hi, chunk_rows=8,
+    plan = TB.plan_radix_join(keys, keys, lo, hi, device="cpu", chunk_rows=8,
                               num_radix_bits=bits, survivor_frac=1.0)
     assert (plan.rgeom.part_bits, plan.rgeom.shift, plan.r_sl_rows) == \
         (pb, shift, slr)
@@ -107,7 +107,7 @@ def test_plan_full_count_matches_ref_join(q):
     p = TG.WorkloadParams(r_size=3000, s_size=100_000, nthreads=4,
                           selectivity=q)
     rk, _, sk, _ = TG.build_workload(p)
-    plan = TB.plan_radix_join(rk, sk, 1, 3000, chunk_rows=64)
+    plan = TB.plan_radix_join(rk, sk, 1, 3000, device="cpu", chunk_rows=64)
     assert (plan.cap_rows is not None) == (q < 0.5)  # compaction only at q<1/2
     want = TG.expected_uniform_match_count(100_000, q)
     assert want == _ref_count(rk, sk)
@@ -130,7 +130,7 @@ def test_plan_matches_jax_plan_interpret():
     rng.shuffle(sk)
     jplan = JB.plan_radix_join(jnp.asarray(rk), sk, 1, n_r, interpret=True,
                                chunk_rows=64)
-    tplan = TB.plan_radix_join(rk, sk, 1, n_r, chunk_rows=64)
+    tplan = TB.plan_radix_join(rk, sk, 1, n_r, device="cpu", chunk_rows=64)
     assert tplan.cap_rows is not None
     g = jplan.geom
     assert (tplan.sgeom.part_bits, tplan.sgeom.shift, tplan.sl_rows) == \
@@ -151,8 +151,8 @@ def test_deep_shift_decoupled_build_geometry():
                          rng.integers(hi + 1, 1 << 28, 27000)]).astype(np.int32)
     rng.shuffle(sk)
     plan = TB.plan_radix_join(torch.from_numpy(rk), torch.from_numpy(sk), lo,
-                              hi, chunk_rows=16, num_radix_bits=0,
-                              survivor_frac=1.0)
+                              hi, device="cpu", chunk_rows=16,
+                              num_radix_bits=0, survivor_frac=1.0)
     assert (plan.sgeom.part_bits, plan.sgeom.shift, plan.sl_rows) == \
         (0, 22, 1024)
     assert (plan.rgeom.part_bits, plan.rgeom.shift, plan.r_sl_rows) == \

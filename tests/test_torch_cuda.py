@@ -4,8 +4,10 @@ Every test takes the `cuda` fixture and skips where no CUDA device exists (a
 CUDA kernel has no CPU mode); chip_smoke.py covers the main path's geometry,
 these cover the edges: tiny and odd chunks, 0 to 13 partition bits, pad
 category dropped, no range prune, negative and near-2^31 key ranges, padded
-and deep bitmap slices, and the launch counters.  This file imports no jax,
-so on a machine without it run:
+and deep bitmap slices, payloads moved with the keys, count tables from
+empty chunks and from every key in one slot, probes with and without S
+payloads, and the launch counters.  This file imports no jax, so on a
+machine without it run:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -16,6 +18,7 @@ import torch
 
 from hwbloomradixjoin_tpu_torch.kernels import _build
 from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+from hwbloomradixjoin_tpu_torch.ops import prho_join as P
 from hwbloomradixjoin_tpu_torch.ops import radix as X
 
 PAD = -2**31
@@ -126,9 +129,123 @@ def test_launch_counts_and_input_checks(cuda):
     X.partition_pass(keys.to(cuda), geom)
     X.compact_pass(keys.to(cuda), 0, 100, 8)
     assert _build.LAUNCHES == {"partition": 1, "compact": 1,
-                               "bitmap_build": 0, "bitmap_probe": 0}
+                               "bitmap_build": 0, "bitmap_probe": 0,
+                               "partition_kv": 0, "table_build": 0,
+                               "table_probe": 0}
     with pytest.raises(ValueError):
         X.partition_pass(keys.to(cuda).long(), geom)
     with pytest.raises(ValueError):
         X.partition_pass(torch.arange(8 * 129, dtype=torch.int32,
                                       device=cuda)[1:8 * 128 + 1], geom)
+
+
+@pytest.mark.parametrize("chunk_rows,part_bits,lo,hi", [
+    (8, 0, 1, 3000), (40, 5, 1, 5000), (4096, 13, 1, 128_000_000),
+    (64, 13, -(1 << 20), (1 << 20) - 1)])
+def test_partition_kv_kernel_matches_twin(cuda, chunk_rows, part_bits, lo,
+                                          hi):
+    rng = np.random.default_rng(part_bits + chunk_rows)
+    n = 3 * chunk_rows * 128
+    keys = _keys(rng, n, lo, hi).to(cuda)
+    pays = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                            .astype(np.int32)).to(cuda)
+    shift = max((hi - lo).bit_length(), 7) - part_bits
+    geom = X.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits, lo=lo,
+                       hi=hi, shift=shift)
+    got = X.partition_pass_kv(keys, pays, geom)
+    want = X.partition_pass_kv_plain(keys, pays, geom)
+    keys_only = X.partition_pass(keys, geom)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[0], keys_only[0])
+    assert torch.equal(got[2], keys_only[1])
+
+
+def _tables_and_probe(cuda, rk, rp, sk, sp, lo, hi, bits=None):
+    pb, shift, slr = P.plan_geometry_counts(lo, hi, bits)
+    geom = X.RadixGeom(chunk_rows=8, part_bits=pb, lo=lo, hi=hi, shift=shift)
+    r_part = X.partition_pass_kv(X._chunk_pad(rk, 1024, cuda),
+                                 X._chunk_pad(rp, 1024, cuda), geom)
+    tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr)
+    want_t = P.build_tables(r_part[0], r_part[1], lo, hi, pb, shift, slr)
+    assert torch.equal(tables[0], want_t[0])
+    assert torch.equal(tables[1], want_t[1])
+    s_part = X.partition_pass_kv(X._chunk_pad(sk, 1024, cuda),
+                                 X._chunk_pad(sp, 1024, cuda), geom)
+    sums = []
+    for s_pay in (s_part[1], None):
+        args = (*tables, s_part[0], s_pay, lo, shift, pb, slr)
+        got = P.probe_count_sums(*args)
+        assert torch.equal(got, P.probe_count_sums_plain(*args))
+        sums.append(got.tolist())
+    return tables, sums
+
+
+def _ref_sums(rk, rp, sk, sp):
+    """(count, r_sum, s_sum) mod 2^32 of the join, in numpy."""
+    keys, inv = np.unique(rk, return_inverse=True)
+    cnt = np.bincount(inv).astype(np.int64)
+    rsum = np.bincount(inv, weights=rp.astype(np.int64) & 0xFFFFFFFF)
+    pos = np.clip(np.searchsorted(keys, sk), 0, len(keys) - 1)
+    hit = keys[pos] == sk
+    c = np.where(hit, cnt[pos], 0)
+    r = int(np.where(hit, rsum[pos], 0).sum()) % 2**32
+    s = int(((sp.astype(np.int64) & 0xFFFFFFFF) * c).sum()) % 2**32
+    return [int(c.sum()), r, s]
+
+
+def test_table_kernels_every_key_in_one_slot(cuda):
+    """All of R in one slot: the count and the wrapped payload sum of 9000
+    atomics, probed by S with PAD and out-of-range keys."""
+    rng = np.random.default_rng(21)
+    rk = np.full(9000, 777, np.int32)
+    rp = rng.integers(-2**31, 2**31, 9000, dtype=np.int64).astype(np.int32)
+    sk = np.array([777] * 50 + [778, 1, 3000, -5, PAD, 2**31 - 1] * 10,
+                  np.int32)
+    sp = rng.integers(-2**31, 2**31, len(sk), dtype=np.int64).astype(np.int32)
+    tables, (with_sp, keys_only) = _tables_and_probe(cuda, rk, rp, sk, sp,
+                                                     1, 3000)
+    assert int(tables[0].max()) == 9000 and int((tables[0] != 0).sum()) == 1
+    assert with_sp == _ref_sums(rk, rp, sk, sp)
+    assert keys_only == with_sp[:2] + [0]
+
+
+def test_table_kernels_empty_chunks(cuda):
+    """Chunks holding PAD only (R and S): zero tables, zero sums."""
+    pad = np.full(3 * 1024, PAD, np.int32)
+    tables, sums = _tables_and_probe(cuda, pad, pad, pad, pad, 1, 5000, 3)
+    assert int(tables[0].abs().sum()) == 0 and int(tables[1].abs().sum()) == 0
+    assert sums == [[0, 0, 0], [0, 0, 0]]
+
+
+@pytest.mark.parametrize("lo,hi,bits", [(1, 299, None), (1, 60000, 4),
+                                        (-(1 << 20), (1 << 20) - 1, 6),
+                                        (1000, 1000 + (1 << 22), None)])
+def test_table_kernels_match_twins(cuda, lo, hi, bits):
+    rng = np.random.default_rng(abs(lo) % 997 + hi % 997)
+    rk = rng.integers(lo, hi + 1, 20_000).astype(np.int32)
+    rp = rng.integers(-2**31, 2**31, len(rk), dtype=np.int64).astype(np.int32)
+    sk = np.concatenate([rng.choice(rk, 7000),
+                         _keys(rng, 9000, lo, hi).numpy()])
+    sp = rng.integers(-2**31, 2**31, len(sk), dtype=np.int64).astype(np.int32)
+    _, (with_sp, keys_only) = _tables_and_probe(cuda, rk, rp, sk, sp, lo, hi,
+                                                bits)
+    assert with_sp == _ref_sums(rk, rp, sk, sp)
+    assert keys_only == with_sp[:2] + [0]
+
+
+def test_prho_plan_on_card_equals_plan_on_cpu(cuda):
+    rng = np.random.default_rng(12)
+    rk = rng.integers(1, 40_000, 60_000).astype(np.int32)
+    rp = rng.integers(0, 2**31, len(rk)).astype(np.int32)
+    sk = rng.integers(-100, 50_000, 700_000).astype(np.int32)
+    sp = rng.integers(0, 2**31, len(sk)).astype(np.int32)
+    for plan_fn, args in ((P.plan_prho_join, (rk, rp, sk, sp)),
+                          (P.plan_prh_join, (rk, rp, sk))):
+        on_card = plan_fn(*args, 1, 39_999, device=cuda).full_sums()
+        on_cpu = plan_fn(*args, 1, 39_999, device="cpu").full_sums()
+        assert on_card == on_cpu
+    want = _ref_sums(rk, rp, sk, sp)
+    assert list(P.plan_prho_join(rk, rp, sk, sp, 1, 39_999,
+                                 device=cuda).full_sums()) == want

@@ -1,8 +1,9 @@
 """PyTorch port: data layer and table types against the JAX package.
 
-The port copies the uniform generators (numpy only); they must emit exactly
-the JAX package's arrays, and relations must cross between the packages
-through numpy unchanged.
+The port copies the uniform generators (numpy only) and the rand()-driven
+non-unique and full-range ones (through its copy of the native binding);
+they must emit exactly the JAX package's arrays, and relations must cross
+between the packages through numpy unchanged.
 """
 
 import os
@@ -66,11 +67,31 @@ def test_build_workload_matches_jax(q):
         (js.min_key, js.max_key, js.is_dense_pk, js.is_unique)
 
 
-@pytest.mark.parametrize("kw", [dict(skew=1.0), dict(nonunique_keys=True),
-                                dict(fullrange_keys=True)])
+@pytest.mark.parametrize("kw", [dict(skew=1.0), dict(skew=0.75),
+                                dict(skew=0.25)])
 def test_unported_generators_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+    """Zipf S sides wait for their slice (the reference sweeps z)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 11"):
         TG.build_workload(TG.WorkloadParams(r_size=10, s_size=10, **kw))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(nonunique_keys=True), dict(nonunique_keys=True, selectivity=0.4),
+    dict(nonunique_keys=True, skew=1.0),      # non-unique wins over skew
+    dict(fullrange_keys=True, r_size=2000, s_size=9000),
+    dict(fullrange_keys=True, selectivity=0.001),
+    dict(nonunique_keys=True, r_size=200_000, s_size=1000)])
+def test_nonunique_and_fullrange_workloads_match_jax(kw):
+    """The rand()-driven generators emit exactly the JAX package's arrays,
+    and declare no key constraint."""
+    base = dict(r_size=3000, s_size=20000, r_seed=5, s_seed=6)
+    tp = TG.WorkloadParams(**{**base, **kw})
+    jp = JG.WorkloadParams(**{**base, **kw})
+    got, want = TG.build_workload(tp), JG.build_workload(jp)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int32
+        np.testing.assert_array_equal(g, w)
+    assert TG.r_key_stats(tp) is None and JG.r_key_stats(jp) is None
 
 
 @pytest.mark.parametrize("s,q", [(400_000, 0.25), (54321, 0.999),
@@ -87,7 +108,7 @@ def test_relation_crosses_packages():
     jr = JRelation.from_numpy(rk, rp, stats=JKeyStats(1, 500, True, True))
     k, p = jr.to_numpy()
     st = jr.stats
-    tr = Relation.from_numpy(k, p, stats=KeyStats(
+    tr = Relation.from_numpy(k, p, device="cpu", stats=KeyStats(
         st.min_key, st.max_key, st.is_dense_pk, st.is_unique))
     assert tr.key.dtype == torch.int32 and tr.capacity == 500
     np.testing.assert_array_equal(tr.to_numpy()[0], rk)
@@ -100,7 +121,7 @@ def test_relation_key8b_columns_match_jax():
     k = rng.integers(-2**40, 2**40, 300).astype(np.int64)
     p = rng.integers(0, 2**40, 300).astype(np.int64)
     jr = JRelation.from_numpy(k, p, key8b=True)
-    tr = Relation.from_numpy(k, p, key8b=True)
+    tr = Relation.from_numpy(k, p, device="cpu", key8b=True)
     for name in ("key", "key_hi", "payload", "payload_hi"):
         np.testing.assert_array_equal(getattr(tr, name).numpy(),
                                       np.asarray(getattr(jr, name)))

@@ -125,9 +125,10 @@ def test_pad_cat_safe_and_cat_rows_match_jax(lo, hi):
 def test_compact_no_cap_and_chunk_pad():
     rng = np.random.default_rng(6)
     keys = _keys(rng, 1000, 1, 5000)
-    padded = TR._chunk_pad(keys, 8 * 128)
+    padded = TR._chunk_pad(keys, 8 * 128, "cpu")
     assert padded.shape == (1024,) and (padded[1000:] == PAD).all()
-    assert torch.equal(TR._chunk_pad(torch.from_numpy(keys), 8 * 128), padded)
+    assert torch.equal(TR._chunk_pad(torch.from_numpy(keys), 8 * 128, "cpu"),
+                       padded)
     out, counts = TR.compact_pass(padded, 1, 5000, 8)
     live = keys[(keys >= 1) & (keys <= 5000)]
     np.testing.assert_array_equal(out.numpy().ravel()[:len(live)], live)

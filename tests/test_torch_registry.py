@@ -1,5 +1,6 @@
 """PyTorch port: planner, run_join and package hygiene vs the JAX package."""
 
+import functools
 import json
 import os
 import subprocess
@@ -42,8 +43,9 @@ def test_run_join_pro_cuda_radix_tier_matches_jax():
         "PRO", JRelation.from_numpy(rk, rp, stats=jst),
         JRelation.from_numpy(sk, sp), JEngineConfig(interpret=True))
     assert jstats.tier == "pallas_radix"
-    R = Relation.from_numpy(rk, rp, stats=KeyStats(1, 3000, is_unique=True))
-    S = Relation.from_numpy(sk, sp)
+    R = Relation.from_numpy(rk, rp, device="cpu",
+                            stats=KeyStats(1, 3000, is_unique=True))
+    S = Relation.from_numpy(sk, sp, device="cpu")
     res, st, sums = run_join("PRO", R, S, EngineConfig(), inner_repeats=2)
     assert st.tier == "cuda_radix"
     assert res.count() == jres.count() == want == st.result
@@ -61,8 +63,9 @@ def test_run_join_pro_cuda_radix_tier_matches_jax():
 def test_run_join_compaction_phase_and_radix_bits():
     rk, rp, sk, sp = _workload(n_r=2000, n_s=300_000, hi_mult=1000, seed=2)
     want = native.ref_join(rk, rp, sk, sp)[0]
-    R = Relation.from_numpy(rk, rp, stats=KeyStats(1, 2000, is_unique=True))
-    S = Relation.from_numpy(sk, sp)
+    R = Relation.from_numpy(rk, rp, device="cpu",
+                            stats=KeyStats(1, 2000, is_unique=True))
+    S = Relation.from_numpy(sk, sp, device="cpu")
     res, st, _ = run_join("RJ", R, S)
     assert st.tier == "cuda_radix" and res.count() == want
     assert "compact" in st.phases
@@ -71,26 +74,41 @@ def test_run_join_compaction_phase_and_radix_bits():
     assert res.count() == want
 
 
-@pytest.mark.parametrize("algo,tier", [("NPO", "ht"), ("PRH", "sortscan"),
-                                       ("PRO", "ht"), ("NPO_st", "ht")])
-def test_portable_tiers_match_jax(algo, tier):
-    """ht / sortscan: counts and mod-2^32 checksums equal the JAX tiers'
-    and ref_join's, with a non-unique build side."""
+def _nonunique_workload():
     rng = np.random.default_rng(7)
     rk = rng.integers(1, 4000, 6000).astype(np.int32)
     rp = rng.integers(0, 1 << 30, 6000).astype(np.int32)
     sk = rng.integers(1, 8000, 30000).astype(np.int32)
     sp = rng.integers(0, 1 << 30, 30000).astype(np.int32)
-    want, wsr, wss = native.ref_join(rk, rp, sk, sp)
-    jres, jst, (jsr, jss) = jax_run_join(
+    return rk, rp, sk, sp
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_portable(algo):
+    """(count, tier, sums) of the JAX run_join on its portable tier over
+    _nonunique_workload(), computed once per algorithm and worker."""
+    rk, rp, sk, sp = _nonunique_workload()
+    jres, jst, jsums = jax_run_join(
         algo, JRelation.from_numpy(rk, rp), JRelation.from_numpy(sk, sp),
         JEngineConfig(radix=JRadixConfig(use_pallas=False)))
-    assert jst.tier == tier
+    return jres.count(), jst.tier, tuple(jsums)
+
+
+@pytest.mark.parametrize("algo,tier", [("NPO", "ht"), ("PRH", "sortscan"),
+                                       ("PRO", "ht"), ("NPO_st", "ht")])
+def test_portable_tiers_match_jax(algo, tier):
+    """ht / sortscan: counts and mod-2^32 checksums equal the JAX tiers'
+    and ref_join's, with a non-unique build side."""
+    rk, rp, sk, sp = _nonunique_workload()
+    want, wsr, wss = native.ref_join(rk, rp, sk, sp)
+    jcount, jtier, (jsr, jss) = _jax_portable(algo)
+    assert jtier == tier
     res, st, (sr, ss) = run_join(
-        algo, Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp),
+        algo, Relation.from_numpy(rk, rp, device="cpu"),
+        Relation.from_numpy(sk, sp, device="cpu"),
         EngineConfig(radix=RadixConfig(use_kernels=False)))
     assert st.tier == tier
-    assert res.count() == jres.count() == want
+    assert res.count() == jcount == want
     assert (sr, ss) == (jsr, jss) == (wsr % 2**32, wss % 2**32)
     assert st.probe_usec > 0 and st.total_usec > 0
 
@@ -110,7 +128,7 @@ def test_select_tier_matches_jax():
         (KeyStats(1, 3000, True, True), JKeyStats(1, 3000, True, True)),
     ]
     for tstats, jstats in cases:
-        R = Relation.from_numpy(rk, stats=tstats)
+        R = Relation.from_numpy(rk, device="cpu", stats=tstats)
         JR = JRelation.from_numpy(rk, stats=jstats)
         for name in registry.ALGORITHMS:
             for use in (True, False):
@@ -131,20 +149,79 @@ def test_select_tier_matches_jax():
                         name, use, mat, tstats)
 
 
+@pytest.mark.parametrize("algo,tier,jtier", [
+    ("PRHO", "cuda_prho", "ht"),
+    ("PRH", "cuda_prh", "sortscan"),
+    ("NPO", "cuda_npo", "ht"),
+    ("PRO", "cuda_prho", "ht"),          # non-unique R
+    ("NPO_st", "cuda_npo", "ht"),
+])
+def test_count_table_tiers_match_jax(algo, tier, jtier):
+    """The count-table tiers over a non-unique R: count and mod-2^32
+    checksums equal the JAX package's portable tier and ref_join (PRH moves
+    no S payload, so its S checksum is 0); NPO reports no partition time."""
+    rk, rp, sk, sp = _nonunique_workload()
+    want = native.ref_join(rk, rp, sk, sp)
+    jcount, jst_tier, jsums = _jax_portable(algo)
+    assert jst_tier == jtier
+    res, st, sums = run_join(algo, Relation.from_numpy(rk, rp, device="cpu"),
+                             Relation.from_numpy(sk, sp, device="cpu"))
+    assert st.tier == tier
+    assert res.count() == st.result == jcount == want[0]
+    assert sums[0] == jsums[0] == want[1] % 2**32
+    assert sums[1] == (0 if algo == "PRH" else jsums[1]) \
+        == (0 if algo == "PRH" else want[2] % 2**32)
+    ph = st.phases
+    assert list(ph) == ["r_partition", "build", "s_partition", "probe"]
+    assert st.build_usec == ph["r_partition"] + ph["build"]
+    if tier == "cuda_npo":
+        assert st.part_usec == 0.0
+        assert st.probe_usec == ph["s_partition"] + ph["probe"]
+    else:
+        assert (st.part_usec, st.probe_usec) == (ph["s_partition"],
+                                                 ph["probe"])
+    assert st.total_usec > 0 and st.raw_total_usec == st.total_usec
+
+
+@pytest.mark.parametrize("algo,tier", [("PRHO", "ht"), ("PRH", "sortscan"),
+                                       ("NPO", "ht")])
+def test_multiplicity_guard_falls_back(algo, tier):
+    """70,000 copies of one key: the planner declines and run_join falls
+    back to the JAX package's tier for the algorithm, with exact sums."""
+    rk = np.concatenate([np.full(70000, 5, np.int32),
+                         np.arange(1, 1000, dtype=np.int32)])
+    rp = np.arange(len(rk), dtype=np.int32)
+    sk = np.arange(-5, 1200, dtype=np.int32)
+    sp = np.arange(len(sk), dtype=np.int32) * 7
+    want = native.ref_join(rk, rp, sk, sp)
+    res, st, sums = run_join(algo, Relation.from_numpy(rk, rp, device="cpu"),
+                             Relation.from_numpy(sk, sp, device="cpu"))
+    assert st.tier == tier and res.count() == want[0]
+    assert sums == (want[1] % 2**32, want[2] % 2**32)
+
+
+def test_fourteen_bit_count_span_raises_slice_2():
+    """A key span in (2^27, 2^28] plans 14 count-partition bits: the
+    one-pass partition raises the two-pass slice's error, no fallback."""
+    rk = np.array([1, 1 << 27, (1 << 27) + 9], np.int32)
+    R = Relation.from_numpy(rk, rk, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 2"):
+        run_join("PRHO", R, R)
+
+
 @pytest.mark.parametrize("algo,cfg,kw", [
-    ("PRHO", EngineConfig(), {}),
-    ("PRH", EngineConfig(), {}),
-    ("NPO", EngineConfig(), {}),
-    ("PRO", EngineConfig(), {"stats": None}),          # non-unique R
     ("PRO", EngineConfig(materialize=True), {}),
     ("PRO", EngineConfig(), {"key8b": True}),
     ("PRO", EngineConfig(), {"bloom": True}),
+    ("PRHO", EngineConfig(materialize=True), {"stats": None}),
 ])
 def test_unported_tiers_raise(algo, cfg, kw):
     rk, rp, sk, sp = _workload(n_r=500, n_s=2000)
     stats = kw.get("stats", KeyStats(1, 500, is_unique=True))
-    R = Relation.from_numpy(rk, rp, stats=stats, key8b=kw.get("key8b", False))
-    S = Relation.from_numpy(sk, sp, key8b=kw.get("key8b", False))
+    R = Relation.from_numpy(rk, rp, device="cpu", stats=stats,
+                            key8b=kw.get("key8b", False))
+    S = Relation.from_numpy(sk, sp, device="cpu",
+                            key8b=kw.get("key8b", False))
     bloom = object() if kw.get("bloom") else None
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
         run_join(algo, R, S, cfg, bloom)
@@ -154,7 +231,8 @@ def test_dense_gate_needs_a_cuda_tensor():
     """A declared dense PK goes to the dense tier only on the card; on the
     CPU the planner keeps the kernel tier (whose twins run there)."""
     rk, rp, _, _ = _workload(n_r=500)
-    R = Relation.from_numpy(rk, rp, stats=KeyStats(1, 500, True, True))
+    R = Relation.from_numpy(rk, rp, device="cpu",
+                            stats=KeyStats(1, 500, True, True))
     spec = registry.ALGORITHMS["PRO"]
     assert registry.select_tier(spec, R, EngineConfig(), (1, 500)) \
         == "cuda_radix"
@@ -170,21 +248,25 @@ from hwbloomradixjoin_tpu_torch.models import run_join
 from hwbloomradixjoin_tpu_torch.types import Relation
 p = G.WorkloadParams(r_size=2000, s_size=40000, nthreads=4, selectivity=0.5)
 rk, rp, sk, sp = G.build_workload(p)
-res, st, _ = run_join("PRO", Relation.from_numpy(rk, rp, stats=G.r_key_stats(p)),
-                      Relation.from_numpy(sk, sp))
+S = Relation.from_numpy(sk, sp, device="cpu")
+res, st, _ = run_join("PRO", Relation.from_numpy(rk, rp, device="cpu",
+                                                 stats=G.r_key_stats(p)), S)
+prho = run_join("PRHO", Relation.from_numpy(rk, rp, device="cpu"), S)
 rec = bench.run_bench("cpu", 2000, 40000, selectivity=0.01, repeats=1, inner=1)
 print(json.dumps({"jax": [m for m in sys.modules
                           if m in ("jax", "hwbloomradixjoin_tpu")
                           or m.startswith(("jax.", "hwbloomradixjoin_tpu."))],
                   "loaded": _build.is_loaded(), "build": _build.build_info,
                   "launches": _build.LAUNCHES, "tier": st.tier,
-                  "count": res.count(), "bench": rec}))
+                  "count": res.count(), "bench": rec,
+                  "prho": [prho[1].tier, prho[0].count(), prho[2]]}))
 """
 
 
 def test_package_imports_no_jax_builds_nothing_on_cpu():
-    """In a fresh process: the port and a CPU run of it import no jax and
-    no JAX package, build and load no kernel, and count no launches."""
+    """In a fresh process: the port and CPU runs of it (PRO on the radix
+    tier, PRHO on the count-table tier) import no jax and no JAX package,
+    build and load no kernel, and count no launches."""
     out = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": REPO})
@@ -194,6 +276,12 @@ def test_package_imports_no_jax_builds_nothing_on_cpu():
     assert got["loaded"] is False and got["build"] == {}
     assert set(got["launches"].values()) == {0}
     assert got["tier"] == "cuda_radix" and got["count"] == 20000
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    rk, rp, sk, sp = G.build_workload(G.WorkloadParams(
+        r_size=2000, s_size=40000, nthreads=4, selectivity=0.5))
+    want = native.ref_join(rk, rp, sk, sp)
+    assert got["prho"] == ["cuda_prho", 20000,
+                           [want[1] % 2**32, want[2] % 2**32]]
     assert got["bench"]["value"] > 0 and got["bench"]["unit"] == "rows/s"
     assert "tier=cuda_radix" in got["bench"]["metric"]
 
