@@ -9,12 +9,20 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
 2. build: compiles the kernels (csrc/*.cu, one nvcc per source, in
    parallel) into the package's git-ignored build directory and prints the
    build time;
-3. kernel vs twin: each of the seven kernels against its plain PyTorch twin
-   on the card on 4 chunks of CHUNK_ROWS=4096 rows: the PRO kernels at
-   plan_geometry(1, 16_000_000), the count-table kernels at workload B's
-   count geometry plan_geometry_counts(1, 128_000_000) = (13, 14, 128) with
+3. kernel vs twin: each of the eleven kernel rows against its plain
+   PyTorch twin on the card on 4 chunks of CHUNK_ROWS=4096 rows: the PRO
+   kernels at plan_geometry(1, 16_000_000), the count-table kernels at
+   workload B's count geometry plan_geometry_counts(1, 128_000_000) =
+   (13, 14, 128) with
    a non-unique R and an S holding PAD, keys below lo and keys above hi;
-   integer outputs must match bit for bit;
+   3d. the bloom kernels: the hash-mode partition at the flagship's pass-1
+   geometry (10 of 21 bits), pass 2 in range mode (b1 = b2 = 6 over
+   [1, 16M]) and in hash mode (b1 = 10, b2 = 3), and the bloom probe of
+   the hash regions against an m = 2^30, k = 1, B = 512 filter, over an S
+   holding PAD, negative keys and keys at or above 2^31 - 2^20; the
+   survivors also equal the plain prune's on the card and the reference
+   filter's (native.ref_bloom) on the host; integer outputs must match bit
+   for bit;
 4. the PRO path: run_join("PRO") on 16M ⋈ 128M uniform at q=1 and q=0.01;
 4b. workload B (128M ⋈ 128M, q=1, payloads on the card): run_join for PRHO,
    PRH and NPO; the tier must be cuda_prho / cuda_prh / cuda_npo, the count
@@ -22,12 +30,24 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    (PRH's S checksum is 0);
 4c. PRO over a non-unique build (16M ⋈ 128M, --non-unique generators): the
    tier must be cuda_prho, count and checksums those of the ht tier;
+4d. two-pass PRO 16M ⋈ 128M at q = 1, RadixConfig(passes=2,
+   num_radix_bits=12): the two-pass plan (6 + 6 bits), count 128,000,000;
+4e. BPRO 16M ⋈ 128M at q = 0.01 with a blocked filter (k = 1, m = 2^27,
+   B = 512): one 10-bit hash pass, exact count, S-tuples after filter
+   equal to the plain prune's on the card;
+4f. BRJ 128M ⋈ 1.024B at q = 0.01, blocked, k = 1, m = 2^30, B = 512 (the
+   reference's headline bloom run, BASELINE.md:43): the two-pass prune
+   (10 + 3 bits), the same checks, and the survivor share beside the
+   reference's 12.14 %;
    every run_join above uses allow_dense=False and has the launch counts
    reset just before and read just after; every kernel of its path must
    have launched;
-5. kernel and twin times at the main paths' full shapes, where each
-   kernel's output must again equal its twin's bit for bit, beside each
-   kernel's bound (bytes moved over the card's memory rate).
+5. kernel and twin times at the main paths' full shapes (the bloom kernels
+   over 4d's and 4e's S, pass 2 in hash mode at the flagship's 10 + 3 bits,
+   where the twins fit beside the data), where each kernel's output must
+   again equal its twin's bit for bit, beside each kernel's bound (bytes
+   moved over the card's memory rate, or int32 operations over its int32
+   rate).
 
 Prints, in order: the card line, each phase's results and wall time, a
 {"kernels": [...]} JSON line, and as the last line {"ok": true, "device":
@@ -44,6 +64,9 @@ R_SIZE = 16_000_000          # the PRO path: 16M ⋈ 128M
 S_SIZE = 128_000_000
 B_SIZE = 128_000_000          # workload B: 128M ⋈ 128M (BASELINE.md, fig. 11)
 NU_R_SIZE = 16_000_000        # non-unique build side, 16M ⋈ 128M
+FLAG_R_SIZE = 128_000_000     # the bloom flagship: 128M ⋈ 1.024B
+FLAG_S_SIZE = 1_024_000_000
+REF_SURVIVOR_PCT = 12.14      # its S-tuples after filter (BASELINE.md:43)
 PAD_KEY = -2**31
 SRC = "hwbloomradixjoin_tpu_torch/csrc/"
 KERNELS = {   # wrapper name -> (route, source, TPU kernel it replaces)
@@ -61,18 +84,33 @@ KERNELS = {   # wrapper name -> (route, source, TPU kernel it replaces)
                     "hwbloomradixjoin_tpu/ops/prho_join.py:81"),
     "table_probe": ("cuda", SRC + "prho_join.cu",
                     "hwbloomradixjoin_tpu/ops/prho_join.py:252"),
+    "partition_hash": ("cuda", SRC + "radix.cu",
+                       "hwbloomradixjoin_tpu/ops/radix.py:435"),
+    "pass2_partition": ("cuda", SRC + "multipass.cu",
+                        "hwbloomradixjoin_tpu/ops/multipass.py:69"),
+    "pass2_partition_hash": ("cuda", SRC + "multipass.cu",
+                             "hwbloomradixjoin_tpu/ops/multipass.py:89"),
+    "bloom_probe": ("cuda", SRC + "bloom.cu",
+                    "hwbloomradixjoin_tpu/ops/bloom_pallas.py:93"),
 }
 # The least time the card could take: the larger of the bytes each function
 # must move (each input read once, each output written once) over the
 # memory rate and its operations over the peak rate, H100 SXM figures of the
-# data sheet.  The kernels do scalar int32 work, for which the float32 rate
-# outside the tensor cores is the nearest published peak; OPS_PER_ELEM
+# data sheet.  The kernels do scalar int32 work.  The data sheet's 67e12
+# float32 operations a second count an FMA as two on 128 lanes an SM; int32
+# issues on 64 lanes an SM, one operation each: 67e12 / 4.  OPS_PER_ELEM
 # counts the integer operations per input element of each function.
 HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 67e12 / 4
+# A crc32c is 4 table lookups and 12 shifts, masks and xors; the hash
+# partition and hash-mode pass 2 take one in their histogram and one in
+# their scatter; the bloom probe one crc32c, one crapwow (2 products, 2 high
+# products, 6 more) and 8 operations a probe position at k = 1.
 OPS_PER_ELEM = {"partition": 14, "compact": 3, "bitmap_build": 7,
                 "bitmap_probe": 9, "partition_kv": 14, "table_build": 8,
-                "table_probe": 10}
+                "table_probe": 10, "partition_hash": 14 + 2 * 16,
+                "pass2_partition": 20, "pass2_partition_hash": 20 + 2 * 16,
+                "bloom_probe": 16 + 10 + 8 + 4}
 # No single PyTorch call computes any of these functions; why, per kernel.
 NO_LIBRARY_CALL = {
     "partition": "torch.sort orders by a category computed first; the starts "
@@ -83,6 +121,13 @@ NO_LIBRARY_CALL = {
     "partition_kv": "as partition, plus a gather of the payloads",
     "table_build": "index_add_ fills one table from slots computed first",
     "table_probe": "gathers from two tables, masked products and three sums",
+    "partition_hash": "a crc32c category to compute first, then a sort and "
+                      "a searchsorted",
+    "pass2_partition": "a gather of each bucket's runs, a category, a sort "
+                       "per region and a searchsorted",
+    "pass2_partition_hash": "as pass2_partition, with a crc32c category",
+    "bloom_probe": "two hashes, a gather of filter words, a bit test, a "
+                   "where and a sum",
 }
 
 
@@ -220,7 +265,89 @@ def compare_table_kernels(dev, rng, err) -> None:
           flush=True)
 
 
-def drive(algo, R, S, cfg, must, label, kind):
+def survivors(keys) -> np.ndarray:
+    """The sorted non-PAD keys of a pruned stream (its survivor multiset)."""
+    keys = keys.reshape(-1)
+    return np.sort(keys[keys != PAD_KEY].cpu().numpy())
+
+
+def compare_bloom_kernels(dev, rng, err) -> None:
+    """Phase 3d: the hash-mode partition, pass 2 in both modes and the
+    bloom probe against their twins on 4 chunks; the probe's survivors
+    against the plain prune on the card and the reference filter."""
+    import torch
+    from hwbloomradixjoin_tpu_torch.config import (BloomArgs, BloomVariant,
+                                                   RadixConfig)
+    from hwbloomradixjoin_tpu_torch.data import native
+    from hwbloomradixjoin_tpu_torch.models import bloom_join
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+    from hwbloomradixjoin_tpu_torch.ops import bloom
+    from hwbloomradixjoin_tpu_torch.ops import bloom_pallas as BP
+    from hwbloomradixjoin_tpu_torch.ops import multipass as M
+    from hwbloomradixjoin_tpu_torch.ops import radix as X
+
+    chunk_rows = B.CHUNK_ROWS
+    n = 4 * chunk_rows * 128
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 30, k=1, B=512)
+    part_bits, hash_bits = BP.geometry_raw(args)
+    b1 = BP.MAX_PART_BITS
+    # S: in-range keys of the 16M range test, negatives, keys at or above
+    # 2^31 - 2^20, PAD; R (the filter's keys): a third of S's plus others
+    u = rng.random(n)
+    sk = rng.integers(1, R_SIZE + 1, n)
+    sk[u < 0.3] = rng.integers(R_SIZE + 1, 1 << 24, int((u < 0.3).sum()))
+    sk[u < 0.15] = rng.integers(2**31 - 2**20, 2**31, int((u < 0.15).sum()))
+    sk[u < 0.08] = rng.integers(-2**31 + 1, 0, int((u < 0.08).sum()))
+    sk[u > 0.97] = PAD_KEY
+    sk = sk.astype(np.int32)
+    rk = np.concatenate([sk[(sk != PAD_KEY) & (u < 0.6) & (u > 0.3)],
+                         rng.integers(-2**31 + 1, 2**31, 100_000)
+                         .astype(np.int32)])
+    s_in = torch.from_numpy(sk).to(dev)
+    hgeom = X.RadixGeom(chunk_rows=chunk_rows, part_bits=b1,
+                        hash_seed=args.seed, hash_bits=hash_bits)
+    record(err, "partition_hash", X.partition_pass(s_in, hgeom),
+           X.partition_pass_plain(s_in, hgeom))
+    # pass 2, range mode: the 4d geometry, 12 bits over [1, 16M]
+    pb, shift, _ = B.plan_geometry(1, R_SIZE, 12)
+    rb1, rb2 = RadixConfig(passes=2).split_bits(pb)
+    rgeom = X.RadixGeom(chunk_rows=chunk_rows, part_bits=rb1, lo=1,
+                        hi=R_SIZE, shift=shift + rb2)
+    s1, st1 = X.partition_pass(s_in, rgeom)
+    p2 = M.plan_pass2(s1, st1, rb1, rb2, chunk_rows, M.MAX_RANGE_CHUNKS,
+                      lo=1, hi=R_SIZE, shift1=shift + rb2, shift2=shift)
+    record(err, "pass2_partition", M.pass2_partition(s1, st1, p2),
+           M.pass2_partition_plain(s1, st1, p2))
+    # pass 2, hash mode: the flagship's 10 + 3 bits, as the prune plans it
+    s1, st1 = X.partition_pass(s_in, hgeom)
+    h2 = M.plan_pass2(s1, st1, b1, part_bits - b1, chunk_rows, None,
+                      hash_seed=args.seed, hash_bits=hash_bits)
+    regions = M.pass2_partition(s1, st1, h2)
+    record(err, "pass2_partition_hash", regions,
+           M.pass2_partition_plain(s1, st1, h2))
+    words = bloom.build_bitmap(torch.from_numpy(rk).to(dev), args)
+    pruned = BP.bloom_probe_prune(words, regions[0], args)
+    record(err, "bloom_probe", pruned,
+           BP.bloom_probe_prune_plain(words, regions[0], args))
+    mask, n_plain = bloom_join.bloom_prune(torch.from_numpy(rk).to(dev),
+                                           s_in, args)
+    want = np.sort(sk[native.ref_bloom("blocked", args.m, args.k, args.B,
+                                       args.seed, rk, sk) & (sk != PAD_KEY)])
+    keep = mask & (s_in != PAD_KEY)
+    got = survivors(pruned[0])
+    if not (np.array_equal(got, want)
+            and np.array_equal(got, survivors(s_in[keep]))
+            and int(pruned[1]) == len(want) == int(keep.sum())):
+        raise AssertionError(f"bloom survivors: kernel {len(got)}, plain "
+                             f"{int(keep.sum())}, reference {len(want)}")
+    print(f"kernel vs twin: bit-exact hash partition {(b1, hash_bits)}, "
+          f"pass 2 range ({rb1}+{rb2} bits, c1_rows "
+          f"{p2.c1_rows}) and hash ({b1}+{part_bits - b1} bits, c1_rows "
+          f"{h2.c1_rows}), bloom probe m=2^30 k=1 B=512: {len(want)} "
+          f"survivors = plain prune = reference filter", flush=True)
+
+
+def drive(algo, R, S, cfg, must, label, kind, bloom_args=None):
     """run_join with the launch counts reset just before and read just
     after; every kernel in `must` has to have launched.  Returns
     (result, stats, sums, launches)."""
@@ -228,14 +355,15 @@ def drive(algo, R, S, cfg, must, label, kind):
     from hwbloomradixjoin_tpu_torch.models import run_join
 
     _build.reset_launches()
-    res, st, sums = run_join(algo, R, S, cfg, inner_repeats=4)
+    res, st, sums = run_join(algo, R, S, cfg, bloom_args, inner_repeats=4)
     ran = dict(_build.LAUNCHES)
     missing = [k for k in must if ran[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched: {missing}")
     phases = " ".join(f"{k}={v / 1e3:.4f}ms" for k, v in st.phases.items())
     print(f"{label} on {kind}: tier={st.tier} count={res.count()} "
-          f"sums={sums} total={st.total_usec / 1e3:.4f}ms "
+          f"sums={sums} s_after_filter={res.s_after_filter} "
+          f"total={st.total_usec / 1e3:.4f}ms "
           f"ns/S-tuple={st.total_usec * 1e3 / S.capacity:.5f} "
           f"build={st.build_usec / 1e3:.4f}ms part={st.part_usec / 1e3:.4f}ms"
           f" probe={st.probe_usec / 1e3:.4f}ms {phases} launches={ran}",
@@ -276,7 +404,132 @@ def run_pro_path(dev, q, kind, launches):
     if res.count() != expect:
         raise AssertionError(f"q={q}: count {res.count()} != {expect}")
     add_launches(launches, ran)
-    return bitmap_join.plan_radix_join(R.key, S.key, 1, R_SIZE, device=dev)
+    return bitmap_join.plan_radix_join(R.key, S.key, 1, R_SIZE,
+                                       device=dev), R, S
+
+
+def run_two_pass(R, S, kind, launches):
+    """Phase 4d: two-pass PRO 16M ⋈ 128M at q = 1 (6 + 6 bits).  Returns
+    the two-pass plan of the same inputs for kernel timing."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.models import registry
+    from hwbloomradixjoin_tpu_torch.ops import multipass
+
+    cfg = EngineConfig(radix=RadixConfig(passes=2, num_radix_bits=12),
+                       allow_dense=False)
+    res, st, _, ran = drive(
+        "PRO", R, S, cfg, ("partition", "pass2_partition", "bitmap_build",
+                           "bitmap_probe"), "two-pass PRO 16M x 128M q=1",
+        kind)
+    expect = G.expected_uniform_match_count(S_SIZE, 1.0)
+    if st.tier != "cuda_radix" or "s_pass2" not in st.phases:
+        raise AssertionError(f"two-pass: tier {st.tier}, phases "
+                             f"{list(st.phases)}")
+    if res.count() != expect:
+        raise AssertionError(f"two-pass: count {res.count()} != {expect}")
+    add_launches(launches, ran)
+    plan = registry.plan_kernel_join("cuda_radix", R, S, cfg,
+                                     *registry.key_ranges(R))
+    if not isinstance(plan, multipass.TwoPassPlan):
+        raise AssertionError(f"two-pass: planned {type(plan).__name__}")
+    print(f"two-pass plan: pass 2 {plan.pass2}", flush=True)
+    return plan
+
+
+def run_bloom(R, S, s_size, q, args, must, label, kind, launches):
+    """Phases 4e and 4f: PRO with a blocked filter.  The count must be the
+    uniform workload's and S-tuples after filter the plain prune's on the
+    same card (over S without its PAD tail).  Returns (stats, the
+    kernel-tier plan of the same inputs or None)."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.models import bloom_join
+
+    res, st, _, ran = drive("PRO", R, S, EngineConfig(allow_dense=False),
+                            must, label, kind, bloom_args=args)
+    expect = G.expected_uniform_match_count(s_size, q)
+    _, n_plain = bloom_join.bloom_prune(R.key, S.key[:s_size], args)
+    if st.tier != "cuda_radix" or res.count() != expect:
+        raise AssertionError(f"{label}: tier {st.tier} count {res.count()} "
+                             f"!= {expect}")
+    if res.s_after_filter != int(n_plain) or st.s_after_filter != int(n_plain):
+        raise AssertionError(f"{label}: s_after_filter {res.s_after_filter}"
+                             f" != plain prune {int(n_plain)}")
+    print(f"{label}: S-tuples after filter {res.s_after_filter} of {s_size} "
+          f"= {100.0 * res.s_after_filter / s_size:.4f} % (the reference: "
+          f"{REF_SURVIVOR_PCT} % at the flagship), equal to the plain prune",
+          flush=True)
+    add_launches(launches, ran)
+    return st
+
+
+def run_bpro(R, S, kind, launches):
+    """Phase 4e: BPRO 16M ⋈ 128M at q = 0.01, blocked, k = 1, m = 2^27,
+    B = 512 (one 10-bit hash pass).  Returns the filtered plan of the same
+    inputs for kernel timing."""
+    from hwbloomradixjoin_tpu_torch.config import (BloomArgs, BloomVariant,
+                                                   EngineConfig)
+    from hwbloomradixjoin_tpu_torch.models import registry
+    from hwbloomradixjoin_tpu_torch.ops import bloom_pallas
+
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 27, k=1, B=512)
+    if bloom_pallas.geometry(args) != (10, 18):
+        raise AssertionError("4e's filter is not the 1-pass 10-bit geometry")
+    run_bloom(R, S, S_SIZE, 0.01, args,
+              ("partition_hash", "bloom_probe", "compact", "partition",
+               "bitmap_build", "bitmap_probe"),
+              "BPRO 16M x 128M q=0.01 blocked k=1 m=2^27 B=512", kind,
+              launches)
+    return registry.plan_kernel_join("cuda_radix", R, S, EngineConfig(
+        allow_dense=False), *registry.key_ranges(R), bloom_args=args)
+
+
+def run_flagship(dev, kind, launches):
+    """Phase 4f: BRJ 128M ⋈ 1.024B at q = 0.01, blocked, k = 1, m = 2^30,
+    B = 512: the two-pass prune.  S's keys only are on the card."""
+    import torch
+    from hwbloomradixjoin_tpu_torch.config import BloomArgs, BloomVariant
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join, bloom, bloom_pallas
+    from hwbloomradixjoin_tpu_torch.types import Relation
+    from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
+
+    t0 = time.perf_counter()
+    params = G.WorkloadParams(r_size=FLAG_R_SIZE, s_size=FLAG_S_SIZE,
+                              nthreads=8, selectivity=0.01)
+    rk, rp, sk, _ = G.build_workload(params)
+    pad = (-len(sk)) % (bitmap_join.CHUNK_ROWS * 128)
+    sk = np.concatenate([sk, np.full(pad, PAD_KEY, np.int32)])
+    R = Relation.from_numpy(rk, rp, device=dev, stats=G.r_key_stats(params))
+    S = Relation(key=torch.from_numpy(sk).to(dev),
+                 payload=torch.zeros(1, dtype=torch.int32, device=dev))
+    del rk, rp, sk
+    print(f"flagship data: {time.perf_counter() - t0:.1f}s", flush=True)
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 30, k=1, B=512)
+    if bloom_pallas.geometry(args) is not None \
+            or bloom_pallas.geometry_raw(args) != (13, 21):
+        raise AssertionError("the flagship filter is not the 2-pass 13-bit "
+                             "geometry")
+    st = run_bloom(R, S, FLAG_S_SIZE, 0.01, args,
+                   ("partition_hash", "pass2_partition_hash",
+                    "bloom_probe", "compact", "partition", "bitmap_build",
+                    "bitmap_probe"),
+                   "BRJ 128M x 1.024B q=0.01 blocked k=1 m=2^30 B=512", kind,
+                   launches)
+    # the open question of PERF.md: the same probe kernel over S as
+    # generated, with no hash partition ahead of it (one random 32-byte
+    # sector of the 128 MiB filter a key)
+    words = bloom.build_bitmap(R.key, args)
+    direct = time_usec(lambda: bloom_pallas.bloom_probe_prune(words, S.key,
+                                                              args), dev)
+    _, n = bloom_pallas.bloom_probe_prune(words, S.key, args)
+    if int(n) != st.s_after_filter:
+        raise AssertionError(f"direct probe kept {int(n)}")
+    print(f"flagship filter probe without the hash partition: "
+          f"{direct / 1e3:.4f} ms over {S.key.numel()} keys, against "
+          f"{(st.phases['bloom_partition'] + st.phases['bloom_probe']) / 1e3:.4f}"
+          f" ms for the two hash passes and the probe", flush=True)
 
 
 def plain_reference(algo, R, S, label):
@@ -357,14 +610,19 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def time_kernels(dev, pro_plans, b_plan, err) -> dict:
+def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, err) -> dict:
     """Phase 5: name -> (kernel ms, twin ms, bound ms, bound_by) at the main
     paths' full shapes: PRO's partition and probe of S at q=1, compaction
     of S at q=0.01, build of R; workload B's partition of S with payloads,
-    table build from R and probe of S with payloads.  Each kernel's output
-    there must equal its twin's bit for bit (folded into err)."""
+    table build from R and probe of S with payloads; 4d's pass 2 (range
+    mode), pass 2 in hash mode at the flagship's 10 + 3 bits over 4e's S,
+    and 4e's hash partition and bloom probe of S.  Each kernel's
+    output there must equal its twin's bit for bit (folded into err)."""
     import torch
+    from hwbloomradixjoin_tpu_torch.config import BloomArgs, BloomVariant
     from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+    from hwbloomradixjoin_tpu_torch.ops import bloom_pallas as BP
+    from hwbloomradixjoin_tpu_torch.ops import multipass as M
     from hwbloomradixjoin_tpu_torch.ops import prho_join as P
     from hwbloomradixjoin_tpu_torch.ops import radix as X
     from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
@@ -384,6 +642,19 @@ def time_kernels(dev, pro_plans, b_plan, err) -> dict:
     live = keys[(keys >= 1) & (keys < 1 + ((1 << gb.part_bits) << gb.shift))]
     slots_needed = torch.unique(live).numel()
     del keys, live
+    s1 = two_pass.s_partition()
+    prune = bpro.prune
+    words, hashed = prune.build(), prune.partition()
+    # hash-mode pass 2 at the flagship's geometry (10 + 3 of 21 block bits)
+    # over 4e's S, planned as the prune plans it
+    flag = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 30, k=1, B=512)
+    part_bits, hash_bits = BP.geometry_raw(flag)
+    h1 = X.partition_pass(prune.sk_in, X.RadixGeom(
+        chunk_rows=prune.pgeom.chunk_rows, part_bits=BP.MAX_PART_BITS,
+        hash_seed=flag.seed, hash_bits=hash_bits))
+    h2 = M.plan_pass2(*h1, BP.MAX_PART_BITS, part_bits - BP.MAX_PART_BITS,
+                      prune.pgeom.chunk_rows, None, hash_seed=flag.seed,
+                      hash_bits=hash_bits)
     # name -> (kernel, twin, bytes read, input elements)
     pairs = {
         "partition": (lambda: X.partition_pass(p1.sk_in, g),
@@ -412,6 +683,24 @@ def time_kernels(dev, pro_plans, b_plan, err) -> dict:
         "table_probe": (lambda: P.probe_count_sums(*pr_args),
                         lambda: P.probe_count_sums_plain(*pr_args),
                         nbytes(*s_kv) + 8 * slots_needed, s_kv[0].numel()),
+        "partition_hash": (
+            lambda: X.partition_pass(prune.sk_in, prune.pgeom),
+            lambda: X.partition_pass_plain(prune.sk_in, prune.pgeom),
+            nbytes(prune.sk_in), prune.sk_in.numel()),
+        # range mode reads each bucket's window of each chunk: count the
+        # pass-1 keys once, as the bound's rule has it
+        "pass2_partition": (
+            lambda: M.pass2_partition(*s1, two_pass.pass2),
+            lambda: M.pass2_partition_plain(*s1, two_pass.pass2),
+            nbytes(*s1), s1[0].numel()),
+        "pass2_partition_hash": (
+            lambda: M.pass2_partition(*h1, h2),
+            lambda: M.pass2_partition_plain(*h1, h2),
+            nbytes(*h1), h1[0].numel()),
+        "bloom_probe": (
+            lambda: BP.bloom_probe_prune(words, hashed, prune.args),
+            lambda: BP.bloom_probe_prune_plain(words, hashed, prune.args),
+            nbytes(hashed, words), hashed.numel()),
     }
     times = {}
     for name, (kern, plain, read, elems) in pairs.items():
@@ -421,7 +710,7 @@ def time_kernels(dev, pro_plans, b_plan, err) -> dict:
         record(err, name, got, want)
         written = nbytes(*(got if isinstance(got, tuple) else (got,)))
         t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
-        t_ops = elems * OPS_PER_ELEM[name] / SCALAR_OPS_PER_S * 1e3
+        t_ops = elems * OPS_PER_ELEM[name] / INT32_OPS_PER_S * 1e3
         times[name] = (ms, plain_ms, max(t_bytes, t_ops),
                        "bytes" if t_bytes >= t_ops else "operations")
         print(f"{name}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
@@ -468,15 +757,27 @@ def main():
     compare_table_kernels(dev, rng, err)
     t0 = done("3 (kernel vs twin)", t0)
 
+    compare_bloom_kernels(dev, rng, err)
+    t0 = done("3d (bloom kernels vs twins)", t0)
+
     launches = {k: 0 for k in KERNELS}
-    pro_plans = {q: run_pro_path(dev, q, kind, launches) for q in (1.0, 0.01)}
+    pro = {q: run_pro_path(dev, q, kind, launches) for q in (1.0, 0.01)}
+    pro_plans = {q: plan for q, (plan, _, _) in pro.items()}
     t0 = done("4 (PRO 16M x 128M)", t0)
     b_plan = run_workload_b(dev, kind, launches)
     t0 = done("4b (workload B)", t0)
     run_nonunique(dev, kind, launches)
     t0 = done("4c (non-unique build)", t0)
+    two_pass = run_two_pass(*pro[1.0][1:], kind, launches)
+    t0 = done("4d (two-pass PRO)", t0)
+    bpro = run_bpro(*pro[0.01][1:], kind, launches)
+    t0 = done("4e (BPRO 16M x 128M)", t0)
+    del pro
+    run_flagship(dev, kind, launches)
+    torch.cuda.empty_cache()
+    t0 = done("4f (BRJ 128M x 1.024B)", t0)
 
-    times = time_kernels(dev, pro_plans, b_plan, err)
+    times = time_kernels(dev, pro_plans, b_plan, two_pass, bpro, err)
     done("5 (kernel times)", t0)
     rows = [{"name": name, "route": route, "source": source,
              "replaces": replaces, "launches": launches[name],

@@ -3,11 +3,16 @@
 // Replaces the Pallas kernels of hwbloomradixjoin_tpu/ops/radix.py:
 //   hbrj_partition  <- partition_pass    (_partition_kernel_for, radix.py:428)
 //                      partition_pass_kv (the same body with a payload, radix.py:519)
+//                      hash mode         (the bloom filter's block, radix.py:435-443)
 //   hbrj_compact    <- compact_pass      (_compact_kernel_for,   radix.py:281)
 //
 // Contract (identical to the TPU kernels, checked bit-for-bit against the
 // plain PyTorch twins in ops/radix.py):
 //   * keys arrive as nchunks chunks of chunk_elems int32 each;
+//   * category: range mode ((key - lo) >>> shift) & (F - 1), PAD and keys
+//     outside [lo, hi] to F when the pad category is kept; hash mode the top
+//     part_bits of the block index crc32c(seed, key) & (2^hash_bits - 1), PAD
+//     to F;
 //   * partition: each chunk is reordered by category, stably (elements of one
 //     category keep their input order), and starts[c][j] = number of elements
 //     of chunk c whose category is < j, for every j < cat_words; an optional
@@ -29,6 +34,9 @@
 // per chunk (one per 4096-key tile at the default chunk of 2^19 keys) keep all
 // SMs busy even for the 32 chunks of a 16M-key build side.
 //
+// Hash mode costs a crc32c a key in both the histogram and the scatter: four
+// dependent lookups in a 1 KiB shared-memory table.
+//
 // Compaction runs one CTA per chunk that streams its chunk in order with a
 // block-wide scan.  It only ever runs on the probe side (hundreds of chunks),
 // so one CTA per chunk fills the card.
@@ -36,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <cub/block/block_scan.cuh>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -47,14 +57,25 @@ constexpr int kScanItems = 4;
 constexpr int kCompactThreads = 512;
 constexpr int kCompactItems = 8;    // two int4 loads per thread and step
 
+constexpr int kCrcWords = 256;      // shared crc32c table ahead of the counters
+
 struct CatParams {
   int lo, hi, has_hi, shift, F, pad_cat;
+  int hash;                        // hash mode: the fields below
+  unsigned seed, hmask;            // crc32c seed, 2^hash_bits - 1
+  int hshift;                      // hash_bits - part_bits
 };
 
-// bucket-of-key of the range geometry (radix.py geom_cat_fn): a LOGICAL shift
-// of the wrapped key - lo; PAD and out-of-range keys take category F when the
-// pad category is kept.
-__device__ __forceinline__ int category(int key, const CatParams p) {
+// bucket-of-key of the geometry (radix.py geom_cat_fn).  Range mode: a
+// LOGICAL shift of the wrapped key - lo; PAD and out-of-range keys take
+// category F when the pad category is kept.  Hash mode: the top bits of the
+// filter block, PAD to F.
+__device__ __forceinline__ int category(int key, const CatParams p,
+                                        const unsigned* crc_table) {
+  if (p.hash) {
+    if (key == kPadKey) return p.F;
+    return (int)((hbrj::crc32c(crc_table, p.seed, key) & p.hmask) >> p.hshift);
+  }
   unsigned norm = (unsigned)key - (unsigned)p.lo;
   int bucket = (int)((norm >> p.shift) & (unsigned)(p.F - 1));
   if (!p.pad_cat) return bucket;
@@ -68,10 +89,15 @@ __global__ void partition_hist(const int* __restrict__ keys, int* __restrict__ h
                                long long ntiles_total, int ntiles, int tile,
                                int ncats, CatParams p) {
   extern __shared__ int smem[];
+  unsigned* crc_table = reinterpret_cast<unsigned*>(smem);
+  if (p.hash) {                    // uniform over the block
+    hbrj::crc32c_table_init(crc_table);
+    __syncthreads();
+  }
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const long long gt = (long long)blockIdx.x * kTileWarps + warp;
   if (gt >= ntiles_total) return;
-  int* cnt = smem + warp * ncats;
+  int* cnt = smem + kCrcWords + warp * ncats;
   for (int i = lane; i < ncats; i += kWarp) cnt[i] = 0;
   __syncwarp();
   const int* src = keys + gt * tile;
@@ -81,7 +107,7 @@ __global__ void partition_hist(const int* __restrict__ keys, int* __restrict__ h
     for (int j = 0; j < 4; ++j) k[j] = src[base + j * kWarp + lane];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int cat = category(k[j], p);
+      const int cat = category(k[j], p, crc_table);
       const unsigned peers = __match_any_sync(0xffffffffu, cat);
       if (lane == __ffs(peers) - 1) cnt[cat] += __popc(peers);
       __syncwarp();
@@ -134,12 +160,17 @@ __global__ void partition_scatter(const int* __restrict__ keys,
                                   long long ntiles_total, int ntiles, int tile,
                                   int ncats, int chunk_elems, CatParams p) {
   extern __shared__ int smem[];
+  unsigned* crc_table = reinterpret_cast<unsigned*>(smem);
+  if (p.hash) {                    // uniform over the block
+    hbrj::crc32c_table_init(crc_table);
+    __syncthreads();
+  }
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const long long gt = (long long)blockIdx.x * kTileWarps + warp;
   if (gt >= ntiles_total) return;
   const long long c = gt / ntiles;
   const int t = (int)(gt % ntiles);
-  int* cnt = smem + warp * ncats;
+  int* cnt = smem + kCrcWords + warp * ncats;
   const int* o = offs + c * (long long)ncats * ntiles + t;
   for (int i = lane; i < ncats; i += kWarp) cnt[i] = o[(long long)i * ntiles];
   __syncwarp();
@@ -158,7 +189,7 @@ __global__ void partition_scatter(const int* __restrict__ keys,
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int cat = category(k[j], p);
+      const int cat = category(k[j], p, crc_table);
       const unsigned peers = __match_any_sync(0xffffffffu, cat);
       const int pos = cnt[cat] + __popc(peers & earlier);
       __syncwarp();
@@ -219,18 +250,21 @@ const char* hbrj_error_string(int err) {
 // keys: nchunks*chunk_elems int32; out: same size; starts: nchunks*cat_words;
 // hist: nchunks * ncats * (chunk_elems / tile) int32 scratch.
 // pays, pays_out: a payload column moved with the keys (same size), or both
-// null.  tile must divide chunk_elems and be a multiple of 128.
+// null.  tile must divide chunk_elems and be a multiple of 128.  hash != 0
+// selects hash mode (seed, hash_bits; lo, hi, has_hi and shift unused).
 int hbrj_partition(const int* keys, const int* pays, int* out, int* pays_out,
                    int* starts, int* hist,
                    long long nchunks, int chunk_elems, int tile, int lo, int hi,
                    int has_hi, int shift, int part_bits, int pad_cat, int cat_words,
-                   cudaStream_t stream) {
+                   int hash, unsigned seed, int hash_bits, cudaStream_t stream) {
   if (nchunks == 0) return 0;
-  const CatParams p{lo, hi, has_hi, shift, 1 << part_bits, pad_cat};
+  const unsigned hmask = hash_bits >= 32 ? 0xFFFFFFFFu : (1u << hash_bits) - 1u;
+  const CatParams p{lo, hi, has_hi, shift, 1 << part_bits, pad_cat,
+                    hash, seed, hmask, hash_bits - part_bits};
   const int ncats = p.F + (pad_cat ? 1 : 0);
   const int ntiles = chunk_elems / tile;
   const long long ntiles_total = nchunks * ntiles;
-  const int smem = kTileWarps * ncats * (int)sizeof(int);
+  const int smem = (kCrcWords + kTileWarps * ncats) * (int)sizeof(int);
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(partition_hist,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))

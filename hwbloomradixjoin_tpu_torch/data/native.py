@@ -1,8 +1,10 @@
 """ctypes binding to the native host generators and the ground-truth join.
 
 The port's own copy of ``hwbloomradixjoin_tpu/data/native.py`` (lines
-29-122), cut to what the port needs: the glibc-rand()-driven non-unique and
-full-range generators and ``ref_join``.  The library is compiled from the
+29-144), cut to what the port needs: the glibc-rand() stream, the
+rand()-driven non-unique, full-range and selection-sampled generators, and
+the two ground truths, ``ref_join`` and the reference's scalar bloom filter
+``ref_bloom``.  The library is compiled from the
 repository's ``native/hbrj_native.cpp`` with ``g++`` (the flags of
 ``native/Makefile``) at first use, into the package's git-ignored ``build/``
 directory under a name that hashes the source and flags; nothing is written
@@ -30,6 +32,7 @@ _lock = threading.Lock()
 _lib = None
 
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
 
 
@@ -56,6 +59,16 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             dll = ctypes.CDLL(str(build()))
+            dll.hbrj_rand_stream.argtypes = [
+                ctypes.c_uint32, ctypes.c_int64, _i32p]
+            dll.hbrj_ref_bloom.argtypes = [
+                ctypes.c_int, ctypes.c_uint64, ctypes.c_uint64,
+                ctypes.c_uint64, ctypes.c_uint32, _i32p, ctypes.c_int64,
+                _i32p, ctypes.c_int64, _u8p, ctypes.c_void_p]
+            dll.hbrj_unique_gen_range.argtypes = [
+                ctypes.c_uint32, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int32, ctypes.c_int32, _i32p]
+            dll.hbrj_unique_gen_range.restype = ctypes.c_int64
             dll.hbrj_random_gen.argtypes = [
                 ctypes.c_uint32, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int64, _i32p]
@@ -69,7 +82,8 @@ def lib() -> ctypes.CDLL:
                 _i32p, _i32p, ctypes.c_int64, _i32p, _i32p, ctypes.c_int64,
                 _u64p]
             for fn in (dll.hbrj_random_gen, dll.hbrj_nonunique_from_pk,
-                       dll.hbrj_fk_from_pk, dll.hbrj_ref_join):
+                       dll.hbrj_fk_from_pk, dll.hbrj_ref_join,
+                       dll.hbrj_rand_stream, dll.hbrj_ref_bloom):
                 fn.restype = None
             _lib = dll
         return _lib
@@ -116,3 +130,35 @@ def ref_join(r_keys, r_pay, s_keys, s_pay):
     sp = np.ascontiguousarray(s_pay, np.int32)
     lib().hbrj_ref_join(rk, rp, len(rk), sk, sp, len(sk), out)
     return int(out[0]), int(out[1]), int(out[2])
+
+
+def rand_stream(seed: int, n: int) -> np.ndarray:
+    """The first n values of glibc rand() seeded `seed`."""
+    out = np.empty(n, dtype=np.int32)
+    lib().hbrj_rand_stream(seed & 0xFFFFFFFF, n, out)
+    return out
+
+
+def ref_bloom(variant: str, m: int, k: int, B: int, seed: int,
+              add_keys, query_keys, want_bitmap: bool = False):
+    """Ground-truth bloom filter (the reference's scalar add/contains):
+    the contains mask of the queries, and the filter's m/8 bytes with
+    want_bitmap."""
+    v = {"basic": 0, "blocked": 1}[variant]
+    ak = np.ascontiguousarray(add_keys, np.int32)
+    qk = np.ascontiguousarray(query_keys, np.int32)
+    out = np.empty(len(qk), dtype=np.uint8)
+    bitmap = np.zeros(m // 8, dtype=np.uint8) if want_bitmap else None
+    ptr = bitmap.ctypes.data_as(ctypes.c_void_p) if want_bitmap else None
+    lib().hbrj_ref_bloom(v, m, k, B, seed & 0xFFFFFFFF, ak, len(ak), qk,
+                         len(qk), out, ptr)
+    return (out.astype(bool), bitmap) if want_bitmap else out.astype(bool)
+
+
+def unique_gen_range(seed: int, skip: int, n: int, minv: int, maxv: int):
+    """n unique keys selection-sampled from [minv, maxv) by rand() seeded
+    `seed` after `skip` draws; returns (keys, draws consumed)."""
+    out = np.empty(n, dtype=np.int32)
+    consumed = lib().hbrj_unique_gen_range(seed & 0xFFFFFFFF, skip, n, minv,
+                                           maxv, out)
+    return out, int(consumed)

@@ -38,14 +38,22 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 
 # One count per kernel wrapper: +1 each time the wrapper launches its kernel
 # on the card (the CPU twins never count).  Reset with reset_launches().
+# The hash modes of the partition and of pass 2 count as "partition_hash"
+# and "pass2_partition_hash", apart from their range modes, so a run shows
+# which of the two it launched.
 LAUNCHES = {"partition": 0, "compact": 0, "bitmap_build": 0,
             "bitmap_probe": 0, "partition_kv": 0, "table_build": 0,
-            "table_probe": 0}
+            "table_probe": 0, "partition_hash": 0, "pass2_partition": 0,
+            "pass2_partition_hash": 0, "bloom_probe": 0}
 
-_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_vp, _i, _u, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, \
+    ctypes.c_longlong
 _SIGNATURES = {
     "hbrj_partition": [_vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _i,
-                       _i, _i, _i, _i, _vp],
+                       _i, _i, _i, _i, _i, _u, _i, _vp],
+    "hbrj_pass2_partition": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
+                             _ll, _i, _i, _u, _i, _i, _i, _i, _vp],
+    "hbrj_bloom_probe": [_vp, _ll, _vp, _vp, _vp, _u, _u, _u, _i, _vp],
     "hbrj_compact": [_vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
     "hbrj_bitmap_build": [_vp, _ll, _vp, _ll, _i, _i, _i, _ll, _vp],
     "hbrj_bitmap_probe": [_vp, _vp, _ll, _vp, _i, _i, _i, _ll, _vp],

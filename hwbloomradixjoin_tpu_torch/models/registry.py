@@ -3,15 +3,25 @@
 Counterpart of ``hwbloomradixjoin_tpu/models/registry.py`` (lines 82-173,
 344-529, 632-791).  ``select_tier`` is ported whole; the kernel tiers are
 ``cuda_radix`` (the JAX package's ``pallas_radix``: PRO/RJ over a unique
-build side) and ``cuda_prho``/``cuda_prh``/``cuda_npo`` (its ``pallas_prho``
-/``pallas_prh``/``pallas_npo``: the count-table engines).  A tier runs its
-CUDA kernels on tensors on the card and their plain twins on CPU tensors, so
-CPU tests walk the same planner path as the card.  Tiers whose code is not
-ported yet raise NotImplementedError naming their ROADMAP slice.
+build side, one or two partition passes) and ``cuda_prho``/``cuda_prh``/
+``cuda_npo`` (its ``pallas_prho``/``pallas_prh``/``pallas_npo``: the
+count-table engines).  A tier runs its CUDA kernels on tensors on the card
+and their plain twins on CPU tensors, so CPU tests walk the same planner
+path as the card.  Tiers whose code is not ported yet raise
+NotImplementedError naming their ROADMAP slice.
+
+A bloom filter (``bloom_args``) prunes S ahead of the join, as the JAX
+package's ``_bloom_prologue`` does: the kernel prune (hash partition and
+filter probe, ``ops/bloom_pallas.py``) where the tier accepts any S order,
+the plain order-preserving prune (``models/bloom_join.py``) otherwise; the
+portable tiers prune inside their first phase; NPO ignores the filter.
 
 Timing: every phase and the whole join are timed on the device (CUDA events
 on the card) after warming until steady; ``total_usec`` is the best repeat of
 ``inner_repeats`` whole joins issued back to back, divided by the count.
+Unlike the JAX package, which built the filter at plan time and added one
+timing of the prune to each repeat, the timed join here runs the filter
+build and the prune every time, as the reference's TOTAL-TIME-USECS does.
 """
 
 from __future__ import annotations
@@ -19,10 +29,16 @@ from __future__ import annotations
 import dataclasses
 import time
 
-from hwbloomradixjoin_tpu_torch.config import EngineConfig
-from hwbloomradixjoin_tpu_torch.ops import (bitmap_join, ht_join, prho_join,
+import torch
+
+from hwbloomradixjoin_tpu_torch.config import BloomArgs, EngineConfig
+from hwbloomradixjoin_tpu_torch.models import bloom_join
+from hwbloomradixjoin_tpu_torch.ops import (bitmap_join, bloom_pallas,
+                                            ht_join, multipass, prho_join,
                                             xla_join)
-from hwbloomradixjoin_tpu_torch.types import JoinResult, Relation
+from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
+from hwbloomradixjoin_tpu_torch.ops.radix import LANES
+from hwbloomradixjoin_tpu_torch.types import PAD_KEY, JoinResult, Relation
 from hwbloomradixjoin_tpu_torch.utils.timing import JoinStats, time_usec
 
 # Key-range budget for the count-table tier: slots * 8B (count + paysum).
@@ -125,62 +141,132 @@ def key_ranges(R: Relation):
     return key_range, wide_range
 
 
+KERNEL_TIERS = ("cuda_radix", "cuda_prho", "cuda_prh", "cuda_npo")
+
+
+def _bloom_prologue(R: Relation, S: Relation, bloom_args, allow_kernel=True):
+    """The prune ahead of a kernel tier (run once here), or None without a
+    filter.
+
+    Prefers the kernel prune (bloom_pallas.plan_bloom_prune: output in
+    hash-partitioned order), which takes every blocked filter; the plain
+    order-preserving prune serves the basic variant, which has no kernel,
+    and callers whose S payloads must stay beside the keys
+    (allow_kernel=False).  Both plans write into a chunk-padded buffer,
+    `out`, that the join is planned over.
+    """
+    if bloom_args is None:
+        return None
+    prune = None
+    if allow_kernel:
+        prune = bloom_pallas.plan_bloom_prune(R.key, S.key, bloom_args,
+                                              device=S.device)
+    if prune is None:
+        prune = bloom_join.plan_prune(R.key, S.key, bloom_args,
+                                      bitmap_join.CHUNK_ROWS * LANES)
+    return prune
+
+
+@dataclasses.dataclass
+class FilteredPlan:
+    """A kernel-tier join behind the bloom filter.
+
+    full() rebuilds the filter and prunes S into the join plan's S buffer
+    (in place), then runs the join, so the timed join covers filter build,
+    prune, R build, partitions and probe.  s_after is the survivor count.
+    """
+
+    prune: object        # bloom_pallas.BloomPrunePlan | bloom_join.PrunePlan
+    join: object         # RadixJoinPlan | TwoPassPlan | PrhoPlan
+
+    def __post_init__(self):
+        if self.join.sk_in.data_ptr() != self.prune.out.data_ptr():
+            raise AssertionError("the join is not planned over the pruned "
+                                 "S buffer")
+
+    @property
+    def device(self) -> torch.device:
+        return self.join.device
+
+    @property
+    def s_after(self) -> int:
+        return self.prune.s_after
+
+    def full(self) -> torch.Tensor:
+        self.prune.prune()
+        return self.join.full()
+
+    def full_count(self) -> int:
+        return int(self.full())
+
+    def full_sums(self):
+        return tuple(self.full().tolist())
+
+    def phase_fns(self) -> dict:
+        return {**self.prune.phase_fns(), **self.join.phase_fns()}
+
+
 def plan_kernel_join(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
-                     key_range, wide_range):
+                     key_range, wide_range, bloom_args=None):
     """The plan of a kernel tier over R and S, on S's device.
 
-    cuda_radix plans the bitmap join over wide_range; the count-table tiers
-    plan over key_range and return None when the multiplicity guard
-    declines.
+    cuda_radix plans the bitmap join over wide_range (two passes when
+    cfg.radix.passes == 2 and the two-pass planner accepts, else one); the
+    count-table tiers plan over key_range and return None when the
+    multiplicity guard declines.  With a filter the plan is a FilteredPlan;
+    PRHO and PRO over a non-unique R (cuda_prho) take the order-preserving
+    prune.
     """
+    prune = _bloom_prologue(R, S, bloom_args,
+                            allow_kernel=tier in ("cuda_radix", "cuda_prh"))
+    s_key = S.key if prune is None else prune.out
     bits = cfg.radix.num_radix_bits
     if tier == "cuda_radix":
-        return bitmap_join.plan_radix_join(R.key, S.key, *wide_range,
-                                           device=S.device,
-                                           num_radix_bits=bits)
-    if tier == "cuda_prh":
-        return prho_join.plan_prh_join(R.key, R.payload, S.key, *key_range,
+        plan = None
+        if cfg.radix.passes == 2:
+            plan = multipass.plan_radix_join_2pass(
+                R.key, s_key, *wide_range, device=S.device,
+                num_radix_bits=bits)
+        if plan is None:
+            plan = bitmap_join.plan_radix_join(R.key, s_key, *wide_range,
+                                               device=S.device,
+                                               num_radix_bits=bits)
+    elif tier == "cuda_prh":
+        plan = prho_join.plan_prh_join(R.key, R.payload, s_key, *key_range,
                                        device=S.device, num_radix_bits=bits)
-    return prho_join.plan_prho_join(R.key, R.payload, S.key, S.payload,
-                                    *key_range, device=S.device,
-                                    num_radix_bits=bits)
+    else:
+        # the plain prune's buffer is S chunk-padded: pad S's payloads alike
+        s_pay = S.payload if prune is None else radix_ops._chunk_pad(
+            S.payload, prune.out.numel(), S.device)
+        plan = prho_join.plan_prho_join(R.key, R.payload, s_key, s_pay,
+                                        *key_range, device=S.device,
+                                        num_radix_bits=bits)
+    if plan is None or prune is None:
+        return plan
+    return FilteredPlan(prune=prune, join=plan)
 
 
-def _run_cuda_radix(R: Relation, S: Relation, cfg: EngineConfig,
-                    inner_repeats: int, wide_range):
-    """PRO/RJ on the radix engine: partition + exact-bitmap probe."""
-    t0 = time.perf_counter()
-    plan = plan_kernel_join("cuda_radix", R, S, cfg, None, wide_range)
-    compile_usec = (time.perf_counter() - t0) * 1e6
-    phases = {name: time_usec(fn, plan.device)
-              for name, fn in plan.phase_fns().items()}
-
-    reps = max(1, inner_repeats)
-    total_usec = time_usec(plan.full, plan.device, calls=reps)
-    cnt = plan.full_count()
-    stats = JoinStats(
-        total_usec=total_usec,
-        build_usec=phases["r_partition"] + phases["build"],
-        part_usec=phases.get("compact", 0.0) + phases["s_partition"],
-        probe_usec=phases["probe"],
-        result=cnt, num_s_tuples=S.capacity, compile_usec=compile_usec,
-        tier="cuda_radix", raw_total_usec=total_usec, floor_usec=0.0,
-        phases=phases)
-    return JoinResult(total_results=cnt), stats, (0, 0)
+def _phase_sum(phases: dict, names) -> float:
+    total = 0.0
+    for name in names:
+        total += phases.get(name, 0.0)
+    return total
 
 
-def _run_cuda_prho(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
-                   inner_repeats: int, key_range):
-    """PRHO/PRH/NPO (and PRO/RJ over a non-unique R) on the count-table
-    engine: partition with payloads, table build, S partition, table probe.
+def _run_kernel(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
+                bloom_args, inner_repeats: int, key_range, wide_range):
+    """A kernel tier: PRO/RJ on the radix engine (count only) or the
+    count-table engines (count and both checksums).
 
     NPO's phase attribution follows its two-phase contract: the S partition
     counts as probe work and no partition time is reported (JAX
-    registry.py:518-520).  Returns None when the planner's multiplicity
+    registry.py:518-520).  The filter build counts as build time and the
+    prune as partition time.  Returns None when the planner's multiplicity
     guard declines, and the caller falls back as the JAX package does.
     """
     t0 = time.perf_counter()
-    plan = plan_kernel_join(tier, R, S, cfg, key_range, None)
+    plan = plan_kernel_join(tier, R, S, cfg, key_range, wide_range,
+                            bloom_args)
     if plan is None:
         return None
     compile_usec = (time.perf_counter() - t0) * 1e6
@@ -188,38 +274,59 @@ def _run_cuda_prho(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
               for name, fn in plan.phase_fns().items()}
     total_usec = time_usec(plan.full, plan.device,
                            calls=max(1, inner_repeats))
-    cnt, r_sum, s_sum = plan.full_sums()
-    part_usec, probe_usec = phases["s_partition"], phases["probe"]
+    if tier == "cuda_radix":
+        cnt, sums = plan.full_count(), (0, 0)
+    else:
+        cnt, r_sum, s_sum = plan.full_sums()
+        sums = (r_sum, s_sum)
+    part_usec = _phase_sum(phases, ("bloom_partition", "bloom_probe",
+                                    "compact", "s_partition", "s_pass2"))
+    probe_usec = phases["probe"]
     if tier == "cuda_npo":
         part_usec, probe_usec = 0.0, probe_usec + part_usec
+    s_after = getattr(plan, "s_after", None)
     stats = JoinStats(
         total_usec=total_usec,
-        build_usec=phases["r_partition"] + phases["build"],
+        build_usec=_phase_sum(phases, ("bloom_build", "r_partition",
+                                       "build")),
         part_usec=part_usec, probe_usec=probe_usec, result=cnt,
-        num_s_tuples=S.capacity, compile_usec=compile_usec, tier=tier,
-        raw_total_usec=total_usec, floor_usec=0.0, phases=phases)
-    return JoinResult(total_results=cnt), stats, (r_sum, s_sum)
+        num_s_tuples=S.capacity, s_after_filter=s_after,
+        compile_usec=compile_usec, tier=tier, raw_total_usec=total_usec,
+        floor_usec=0.0, phases=phases)
+    return JoinResult(total_results=cnt, s_after_filter=s_after), stats, sums
 
 
-def _run_portable(tier: str, R: Relation, S: Relation, inner_repeats: int,
-                  key_range):
-    """The plain-torch tiers: ht (count table) or sortscan (sort + scan)."""
+def _run_portable(tier: str, R: Relation, S: Relation, bloom_args,
+                  inner_repeats: int, key_range):
+    """The plain-torch tiers: ht (count table) or sortscan (sort + scan),
+    the filter's prune inside the first phase."""
     dev = S.device
+
+    def prune():
+        if bloom_args is None:
+            return S.key, None
+        mask, n = bloom_join.bloom_prune(R.key, S.key, bloom_args)
+        return torch.where(mask, S.key, PAD_KEY), n
+
     if tier == "ht":
         lo, hi = key_range
 
         def first():
-            return ht_join.build_tables(R.key, R.payload, lo, hi)
+            sk, n = prune()
+            return ht_join.build_tables(R.key, R.payload, lo, hi), sk, n
 
-        def second(tables):
-            return ht_join.probe_tables(*tables, S.key, S.payload, lo, hi)
+        def second(carry):
+            tables, sk, n = carry
+            return ht_join.probe_tables(*tables, sk, S.payload, lo, hi), n
         names = ("build", "probe")
     else:
         def first():
-            return xla_join.sort_rows(R.key, R.payload, S.key, S.payload)
+            sk, n = prune()
+            return xla_join.sort_rows(R.key, R.payload, sk, S.payload), n
 
         def second(carry):
-            return xla_join.scan_sorted_count(*carry)
+            rows, n = carry
+            return xla_join.scan_sorted_count(*rows), n
         names = ("part", "probe")
 
     carry = first()
@@ -227,39 +334,40 @@ def _run_portable(tier: str, R: Relation, S: Relation, inner_repeats: int,
               names[1]: time_usec(lambda: second(carry), dev)}
     total_usec = time_usec(lambda: second(first()), dev,
                            calls=max(1, inner_repeats))
-    c, sr, ss = second(first())
+    (c, sr, ss), n = second(first())
     cnt = int(c)
+    s_after = None if n is None else int(n)
     stats = JoinStats(
         total_usec=total_usec, build_usec=phases.get("build", 0.0),
         part_usec=phases.get("part", 0.0), probe_usec=phases["probe"],
-        result=cnt, num_s_tuples=S.capacity, tier=tier,
-        raw_total_usec=total_usec, phases=phases)
-    return JoinResult(total_results=cnt), stats, (int(sr), int(ss))
+        result=cnt, num_s_tuples=S.capacity, s_after_filter=s_after,
+        tier=tier, raw_total_usec=total_usec, phases=phases)
+    return (JoinResult(total_results=cnt, s_after_filter=s_after), stats,
+            (int(sr), int(ss)))
 
 
 def run_join(name: str, R: Relation, S: Relation,
-             cfg: EngineConfig = EngineConfig(), bloom_args=None,
-             inner_repeats: int = 1):
+             cfg: EngineConfig = EngineConfig(),
+             bloom_args: BloomArgs | None = None, inner_repeats: int = 1):
     """Execute a named join algorithm; returns (JoinResult, JoinStats, sums).
 
     sums are the (R, S) payload checksums mod 2^32 on the count-table and
     portable tiers (S's is 0 on cuda_prh) and (0, 0) on the count-only radix
-    tier, as in the JAX package.
+    tier, as in the JAX package.  With bloom_args, S is pruned by R's
+    filter first and JoinResult/JoinStats.s_after_filter hold the survivor
+    count (NPO ignores the filter, as the reference's B_NPO wrappers do).
     """
     spec = ALGORITHMS[name]
     if spec.family == "npo":
         bloom_args = None  # B_NPO wrappers ignore the filter (main.c:296-312)
-    if bloom_args is not None:
-        raise NotImplementedError("bloom pre-filter: ROADMAP slice 5")
     key_range, wide_range = key_ranges(R)
     tier = select_tier(spec, R, cfg, key_range, wide_range)
     if tier in UNPORTED_TIERS:
         raise NotImplementedError(f"tier {tier}: {UNPORTED_TIERS[tier]}")
-    if tier == "cuda_radix":
-        return _run_cuda_radix(R, S, cfg, inner_repeats, wide_range)
-    if tier in ("cuda_prho", "cuda_prh", "cuda_npo"):
-        out = _run_cuda_prho(tier, R, S, cfg, inner_repeats, key_range)
+    if tier in KERNEL_TIERS:
+        out = _run_kernel(tier, R, S, cfg, bloom_args, inner_repeats,
+                          key_range, wide_range)
         if out is not None:
             return out
         tier = "sortscan" if tier == "cuda_prh" else "ht"
-    return _run_portable(tier, R, S, inner_repeats, key_range)
+    return _run_portable(tier, R, S, bloom_args, inner_repeats, key_range)

@@ -15,6 +15,9 @@ column with the keys) and ``compact_pass`` launch the hand-written CUDA
 kernels of ``csrc/radix.cu`` for a tensor on the card and run their plain
 PyTorch twins (``*_plain``) for a tensor on the CPU.  The twins are the
 reference the kernels are checked against on the card.
+
+A geometry partitions by key range, or, with ``hash_seed`` set, by the top
+bits of the bloom filter's block index (hash mode, ``ops/bloom_pallas.py``).
 """
 
 from __future__ import annotations
@@ -27,25 +30,32 @@ import numpy as np
 import torch
 
 from hwbloomradixjoin_tpu_torch.kernels import _build
+from hwbloomradixjoin_tpu_torch.ops import hashes
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY
 
 LANES = 128
 # the partition kernel keeps one per-warp counter per category in shared
 # memory: 2^13 buckets + the pad category fit; wider single-pass fan-outs
-# (full-int32-span key ranges) need two passes
+# (full-int32-span key ranges, count spans past 2^27) wait for the wide
+# single-pass partition (ROADMAP slice 12)
 MAX_PART_BITS = 13
 
 
 @dataclasses.dataclass(frozen=True)
 class RadixGeom:
-    """Static partition geometry (range mode).
+    """Static partition geometry.
 
-    bucket of a key = ((key - lo) >>> shift) & (2^part_bits - 1), a logical
-    shift of the int32-wrapped difference.  With pad_cat, PAD keys and keys
-    outside [lo, hi] (when hi is set) take the pad category 2^part_bits and
-    sort to the chunk tail; without it (safe only when pad_cat_safe(lo, hi)
-    and the stream has no real out-of-range keys) PAD lands in a junk bucket
-    and consumers mask by bucket-of-key.
+    Range mode: bucket of a key = ((key - lo) >>> shift) & (2^part_bits -
+    1), a logical shift of the int32-wrapped difference.  With pad_cat, PAD
+    keys and keys outside [lo, hi] (when hi is set) take the pad category
+    2^part_bits and sort to the chunk tail; without it (safe only when
+    pad_cat_safe(lo, hi) and the stream has no real out-of-range keys) PAD
+    lands in a junk bucket and consumers mask by bucket-of-key.
+
+    Hash mode (hash_seed set): bucket = (crc32c(hash_seed, key) &
+    (2^hash_bits - 1)) >> (hash_bits - part_bits), the top part_bits bits of
+    the key's filter block; PAD takes the pad category.  lo, hi and shift
+    are unused.
     """
 
     chunk_rows: int = 1024
@@ -55,11 +65,14 @@ class RadixGeom:
     shift: int = 0
     pad_cat: bool = True
     hash_seed: Optional[int] = None
+    hash_bits: int = 0
 
     def __post_init__(self):
-        if self.hash_seed is not None:
-            raise NotImplementedError(
-                "hash-mode partitioning (bloom pre-filter): ROADMAP slice 5")
+        if self.hash_seed is not None and not (
+                0 <= self.part_bits <= self.hash_bits <= 31 and self.pad_cat):
+            raise ValueError(f"hash mode needs 0 <= part_bits "
+                             f"{self.part_bits} <= hash_bits {self.hash_bits}"
+                             f" <= 31 and the pad category")
         if not 0 <= self.shift <= 31:
             raise ValueError(f"shift {self.shift} outside [0, 31]")
 
@@ -85,8 +98,14 @@ def pad_cat_safe(lo: int, hi: int) -> bool:
 
 
 def geom_cat_fn(geom: RadixGeom):
-    """bucket-of-key category function of a range geometry (int64 result)."""
+    """bucket-of-key category function of a geometry (int64 result)."""
     def cat_fn(key: torch.Tensor) -> torch.Tensor:
+        if geom.hash_seed is not None:
+            block = hashes.hash_crc(geom.hash_seed, key) \
+                & ((1 << geom.hash_bits) - 1)
+            return torch.where(key != PAD_KEY,
+                               block >> (geom.hash_bits - geom.part_bits),
+                               1 << geom.part_bits)
         norm = (key.long() - geom.lo) & 0xFFFFFFFF     # uint32 wrap
         bucket = (norm >> geom.shift) & ((1 << geom.part_bits) - 1)
         if not geom.pad_cat:
@@ -166,15 +185,20 @@ def _partition_launch(keys_flat: torch.Tensor, pays_flat, geom: RadixGeom):
     hist = torch.empty(nchunks * geom.ncats * (chunk // tile),
                        dtype=torch.int32, device=dev)
     pays_out = None if pays_flat is None else torch.empty_like(out)
-    _build.launch("partition" if pays_flat is None else "partition_kv",
-                  "hbrj_partition", dev, keys_flat.data_ptr(),
+    if pays_flat is not None:
+        name = "partition_kv"
+    else:
+        name = "partition" if geom.hash_seed is None else "partition_hash"
+    _build.launch(name, "hbrj_partition", dev, keys_flat.data_ptr(),
                   None if pays_flat is None else pays_flat.data_ptr(),
                   out.data_ptr(),
                   None if pays_out is None else pays_out.data_ptr(),
                   starts.data_ptr(), hist.data_ptr(), nchunks, chunk, tile,
                   geom.lo, geom.hi if geom.hi is not None else 0,
                   int(geom.hi is not None), geom.shift, geom.part_bits,
-                  int(geom.pad_cat), geom.cat_rows * LANES)
+                  int(geom.pad_cat), geom.cat_rows * LANES,
+                  int(geom.hash_seed is not None),
+                  (geom.hash_seed or 0) & 0xFFFFFFFF, geom.hash_bits)
     return out, pays_out, starts
 
 
@@ -182,7 +206,7 @@ def _check_fanout(geom: RadixGeom) -> None:
     if geom.part_bits > MAX_PART_BITS:
         raise NotImplementedError(
             f"{geom.part_bits}-bit single-pass fan-out (> {MAX_PART_BITS}): "
-            "wide key ranges need two-pass partitioning, ROADMAP slice 2")
+            "the wide single-pass partition, ROADMAP slice 12")
 
 
 def partition_pass(keys_flat: torch.Tensor, geom: RadixGeom):

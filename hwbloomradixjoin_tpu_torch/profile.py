@@ -2,13 +2,19 @@
 
     python -m hwbloomradixjoin_tpu_torch.profile PRHO --r 128000000 --s 128000000
     python -m hwbloomradixjoin_tpu_torch.profile PRO --r 16000000 --non-unique
+    python -m hwbloomradixjoin_tpu_torch.profile PRO --r 16000000 --passes 2 --bits 12
+    python -m hwbloomradixjoin_tpu_torch.profile PRO --r 128000000 \
+        --s 1024000000 --q 0.01 --bloom blocked --m 1073741824 --k 1 --B 512
 
 Generates the workload as ``chip_smoke.py`` does (uniform PK/FK at q, or the
-non-unique generators), plans the join with the planner of the tier
-``run_join`` picks for it (``allow_dense=False``), warms the whole join, then
-traces JOINS back-to-back whole joins with ``torch.profiler``.  Prints
-one JSON line: the card, the tier, the device time of each kernel per join
-(ms, summed by kernel name), and the device's busy share: the union of
+non-unique generators; S's keys only where the tier reads no S payload),
+plans the join with the planner of the tier ``run_join`` picks for it
+(``allow_dense=False``; with ``--bloom`` behind the filter, with
+``--passes 2`` two-pass where the planner accepts), warms the whole join,
+then traces JOINS back-to-back whole joins with ``torch.profiler``.  Prints
+one JSON line: the card, the tier, the plan, the device time of each kernel
+per join (ms, summed by kernel name; plain torch work is summed under the
+names of its ATen kernels), and the device's busy share: the union of
 kernel intervals over the span from the first kernel's start to the last
 one's end.  Runs on the GPU only.
 """
@@ -23,17 +29,17 @@ import subprocess
 JOINS = 5          # whole joins traced, back to back, after 3 warm ones
 
 
-def _plan(algo: str, R, S):
-    """The plan of the kernel tier run_join picks (allow_dense=False)."""
-    from hwbloomradixjoin_tpu_torch.config import EngineConfig
+def _plan(algo: str, R, S, cfg, bloom_args):
+    """The plan of the kernel tier run_join picks."""
     from hwbloomradixjoin_tpu_torch.models import registry
 
-    cfg = EngineConfig(allow_dense=False)
+    if registry.ALGORITHMS[algo].family == "npo":
+        bloom_args = None          # as run_join: NPO ignores the filter
     ranges = registry.key_ranges(R)
     tier = registry.select_tier(registry.ALGORITHMS[algo], R, cfg, *ranges)
-    if tier not in ("cuda_radix", "cuda_prho", "cuda_prh", "cuda_npo"):
+    if tier not in registry.KERNEL_TIERS:
         raise SystemExit(f"profile: tier {tier} has no kernel plan")
-    plan = registry.plan_kernel_join(tier, R, S, cfg, *ranges)
+    plan = registry.plan_kernel_join(tier, R, S, cfg, *ranges, bloom_args)
     if plan is None:
         raise SystemExit("profile: the planner declined (multiplicity guard)")
     return plan, tier
@@ -47,11 +53,13 @@ def _short(name: str) -> str:
 
 
 def profile_join(algo: str, r_size: int, s_size: int, selectivity: float,
-                 nonunique: bool) -> dict:
+                 nonunique: bool, bloom_args=None, passes: int = 1,
+                 bits=None) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
     from hwbloomradixjoin_tpu_torch.data import generator as G
     from hwbloomradixjoin_tpu_torch.types import Relation
 
@@ -61,9 +69,16 @@ def profile_join(algo: str, r_size: int, s_size: int, selectivity: float,
                               nonunique_keys=nonunique)
     rk, rp, sk, sp = G.build_workload(params)
     R = Relation.from_numpy(rk, rp, device=dev, stats=G.r_key_stats(params))
-    S = Relation.from_numpy(sk, sp, device=dev)
+    cfg = EngineConfig(radix=RadixConfig(num_radix_bits=bits, passes=passes),
+                       allow_dense=False)
+    if algo in ("PRO", "RJ") and not nonunique:
+        # key-column projection: the count-only radix tier reads no payload
+        S = Relation(key=torch.from_numpy(sk).to(dev),
+                     payload=torch.zeros(1, dtype=torch.int32, device=dev))
+    else:
+        S = Relation.from_numpy(sk, sp, device=dev)
     del rk, rp, sk, sp
-    plan, tier = _plan(algo, R, S)
+    plan, tier = _plan(algo, R, S, cfg, bloom_args)
     for _ in range(3):
         plan.full()
     torch.cuda.synchronize()
@@ -91,7 +106,13 @@ def profile_join(algo: str, r_size: int, s_size: int, selectivity: float,
         capture_output=True, text=True, check=True).stdout.strip()
     return {"card": card, "algo": algo, "tier": tier, "r_size": r_size,
             "s_size": s_size, "selectivity": selectivity,
-            "nonunique": nonunique, "joins": JOINS,
+            "nonunique": nonunique, "passes": passes, "bits": bits,
+            "bloom": None if bloom_args is None else {
+                "variant": bloom_args.variant.value, "m": bloom_args.m,
+                "k": bloom_args.k, "B": bloom_args.B},
+            "plan": type(getattr(plan, "join", plan)).__name__,
+            "s_after_filter": getattr(plan, "s_after", None),
+            "joins": JOINS,
             "ms_per_join": (end - spans[0][0]) / JOINS / 1e3,
             "busy_share": busy / (end - spans[0][0]),
             "kernel_ms_per_join": {k: v / JOINS / 1e3 for k, v in sorted(
@@ -110,8 +131,20 @@ def main():
     ap.add_argument("--s", type=int, default=128_000_000)
     ap.add_argument("--q", type=float, default=1.0)
     ap.add_argument("--non-unique", action="store_true")
+    ap.add_argument("--bits", type=int, default=None)
+    ap.add_argument("--passes", type=int, choices=[1, 2], default=1)
+    ap.add_argument("--bloom", choices=["basic", "blocked"], default=None)
+    ap.add_argument("--m", type=int, default=256 << 20)
+    ap.add_argument("--k", type=int, default=8)
+    ap.add_argument("--B", type=int, default=1024)
     a = ap.parse_args()
-    print(json.dumps(profile_join(a.algo, a.r, a.s, a.q, a.non_unique)))
+    bloom_args = None
+    if a.bloom is not None:
+        from hwbloomradixjoin_tpu_torch.config import BloomArgs, BloomVariant
+        bloom_args = BloomArgs(variant=BloomVariant(a.bloom), m=a.m, k=a.k,
+                               B=a.B)
+    print(json.dumps(profile_join(a.algo, a.r, a.s, a.q, a.non_unique,
+                                  bloom_args, a.passes, a.bits)))
 
 
 if __name__ == "__main__":

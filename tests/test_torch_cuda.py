@@ -6,7 +6,10 @@ these cover the edges: tiny and odd chunks, 0 to 13 partition bits, pad
 category dropped, no range prune, negative and near-2^31 key ranges, padded
 and deep bitmap slices, payloads moved with the keys, count tables from
 empty chunks and from every key in one slot, probes with and without S
-payloads, and the launch counters.  This file imports no jax, so on a
+payloads, the hash-mode partition, pass 2 in both modes (all PAD, one chunk,
+empty buckets), the bloom probe (k = 1..8, B = 32 to 2^17, no survivors),
+the prune past the TPU's limits (2,049 chunks, a hot key) and the launch
+counters.  This file imports no jax, so on a
 machine without it run:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -16,8 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+from hwbloomradixjoin_tpu_torch.config import BloomArgs, BloomVariant
 from hwbloomradixjoin_tpu_torch.kernels import _build
 from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+from hwbloomradixjoin_tpu_torch.ops import bloom
+from hwbloomradixjoin_tpu_torch.ops import bloom_pallas as BP
+from hwbloomradixjoin_tpu_torch.ops import multipass as M
 from hwbloomradixjoin_tpu_torch.ops import prho_join as P
 from hwbloomradixjoin_tpu_torch.ops import radix as X
 
@@ -131,7 +138,9 @@ def test_launch_counts_and_input_checks(cuda):
     assert _build.LAUNCHES == {"partition": 1, "compact": 1,
                                "bitmap_build": 0, "bitmap_probe": 0,
                                "partition_kv": 0, "table_build": 0,
-                               "table_probe": 0}
+                               "table_probe": 0, "partition_hash": 0,
+                               "pass2_partition": 0,
+                               "pass2_partition_hash": 0, "bloom_probe": 0}
     with pytest.raises(ValueError):
         X.partition_pass(keys.to(cuda).long(), geom)
     with pytest.raises(ValueError):
@@ -249,3 +258,171 @@ def test_prho_plan_on_card_equals_plan_on_cpu(cuda):
     want = _ref_sums(rk, rp, sk, sp)
     assert list(P.plan_prho_join(rk, rp, sk, sp, 1, 39_999,
                                  device=cuda).full_sums()) == want
+
+
+def _hash_keys(rng, n, pad_frac=0.07):
+    k = rng.integers(-2**31 + 1, 2**31, n, dtype=np.int64)
+    k[rng.random(n) < pad_frac] = PAD
+    return torch.from_numpy(k.astype(np.int32))
+
+
+@pytest.mark.parametrize("chunk_rows,nchunks", [(8, 1), (40, 3), (4096, 2)])
+@pytest.mark.parametrize("part_bits,hash_bits", [(0, 7), (3, 9), (10, 21),
+                                                 (13, 13)])
+def test_hash_partition_kernel_matches_twin(cuda, chunk_rows, nchunks,
+                                            part_bits, hash_bits):
+    rng = np.random.default_rng(part_bits * 3 + chunk_rows)
+    keys = _hash_keys(rng, nchunks * chunk_rows * 128).to(cuda)
+    keys[:chunk_rows * 128 // 2] = PAD            # half a chunk of PAD
+    geom = X.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits,
+                       hash_seed=0x9E3779B9, hash_bits=hash_bits)
+    got = X.partition_pass(keys, geom)
+    want = X.partition_pass_plain(keys, geom)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _pass2_case(cuda, mode, chunk_rows, nchunks, b1, b2, keys):
+    if mode == "hash":
+        kw = dict(hash_seed=42, hash_bits=b1 + b2 + 4)
+        p2kw = kw
+    else:
+        shift = 24 - b1 - b2
+        kw = dict(lo=1, hi=16_000_000, shift=shift + b2)
+        p2kw = dict(lo=1, hi=16_000_000, shift1=shift + b2, shift2=shift)
+    s1, st1 = X.partition_pass(keys.to(cuda),
+                               X.RadixGeom(chunk_rows=chunk_rows,
+                                           part_bits=b1, **kw))
+    geom = M.plan_pass2(s1, st1, b1, b2, chunk_rows, 4096, **p2kw)
+    if geom is None:             # a run filling a chunk: the planner's None
+        geom = M.Pass2Geom(b1=b1, b2=b2, chunk_rows=chunk_rows,
+                           nchunks=nchunks, c1_rows=chunk_rows,
+                           cap_rows=nchunks * chunk_rows,
+                           cat2_rows=((1 << b2) + 1 + 127) // 128 + 7 & ~7,
+                           **{"lo": 0, "hi": 0, "shift1": 0, "shift2": 0,
+                              **p2kw})
+    got = M.pass2_partition(s1, st1, geom)
+    want = M.pass2_partition_plain(s1, st1, geom)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("mode", ["range", "hash"])
+@pytest.mark.parametrize("chunk_rows,nchunks,b1,b2", [
+    (8, 1, 1, 1), (64, 3, 3, 3), (4096, 2, 6, 6), (4096, 2, 10, 3),
+    (256, 2, 2, 10)])
+def test_pass2_kernel_matches_twin(cuda, mode, chunk_rows, nchunks, b1, b2):
+    rng = np.random.default_rng(b1 * 16 + b2 + chunk_rows)
+    n = nchunks * chunk_rows * 128
+    if mode == "hash":
+        keys = _hash_keys(rng, n)
+    else:
+        k = rng.integers(1, 16_000_001, n)
+        u = rng.random(n)
+        k[u < 0.2] = rng.integers(16_000_001, 1 << 24, int((u < 0.2).sum()))
+        k[u < 0.05] = rng.integers(-2**31 + 1, 1, int((u < 0.05).sum()))
+        k[u > 0.95] = PAD
+        keys = torch.from_numpy(k.astype(np.int32))
+    _pass2_case(cuda, mode, chunk_rows, nchunks, b1, b2, keys)
+
+
+@pytest.mark.parametrize("mode", ["range", "hash"])
+def test_pass2_kernel_all_pad_and_empty_buckets(cuda, mode):
+    """All PAD: every region PAD, starts2 0 up to F2; keys of one pass-1
+    bucket only (range mode: [1, 2^18]): the other regions empty."""
+    n = 2 * 64 * 128
+    out, starts2 = _pass2_case(cuda, mode, 64, 2, 3, 2,
+                               torch.full((n,), PAD, dtype=torch.int32))
+    assert (out == PAD).all()
+    assert (starts2.view(8, -1)[:, :5] == 0).all()
+    rng = np.random.default_rng(3)
+    keys = torch.from_numpy(rng.integers(1, 1 << 18, n).astype(np.int32)) \
+        if mode == "range" else _hash_keys(rng, n)
+    _pass2_case(cuda, mode, 64, 2, 3, 2, keys)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 8])
+@pytest.mark.parametrize("B,m", [(32, 1 << 15), (512, 1 << 22),
+                                 (1 << 17, 1 << 24)])
+def test_bloom_probe_kernel_matches_twin(cuda, k, B, m):
+    rng = np.random.default_rng(k + B)
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=m, k=k, B=B, seed=7)
+    add = _hash_keys(rng, 20_000, 0.0).to(cuda)
+    words = bloom.build_bitmap(add, args)
+    s = torch.cat([add[:5000], _hash_keys(rng, 3 * 4096).to(cuda)])
+    out = torch.full((s.numel() + 256,), 3, dtype=torch.int32, device=cuda)
+    got, n = BP.bloom_probe_prune(words, s, args, out=out)
+    want, wn = BP.bloom_probe_prune_plain(words, s, args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:s.numel()], want) and int(n) == int(wn)
+    assert (got[s.numel():] == 3).all()
+    assert int(n) >= 5000 - int((add[:5000] == PAD).sum())
+
+
+def test_bloom_probe_kernel_empty_filter_and_all_pad(cuda):
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 16, k=3, B=512)
+    empty = torch.zeros(args.m // 32, dtype=torch.int32, device=cuda)
+    full = torch.full_like(empty, -1)
+    keys = _hash_keys(np.random.default_rng(1), 8192).to(cuda)
+    got, n = BP.bloom_probe_prune(empty, keys, args)
+    assert int(n) == 0 and (got == PAD).all()
+    got, n = BP.bloom_probe_prune(full, keys, args)
+    assert int(n) == int((keys != PAD).sum()) and torch.equal(got, keys)
+    pads = torch.full((4096,), PAD, dtype=torch.int32, device=cuda)
+    got, n = BP.bloom_probe_prune(full, pads, args)
+    assert int(n) == 0 and (got == PAD).all()
+
+
+def test_bloom_prune_plan_on_card_equals_plan_on_cpu(cuda):
+    """One and two hash passes (the flagship's 13-bit geometry at m = 2^30
+    goes two-pass): the same pruned buffer and survivor count."""
+    rng = np.random.default_rng(31)
+    rk = rng.integers(1, 1 << 30, 200_000).astype(np.int32)
+    sk = np.concatenate([rk[:50_000],
+                         rng.integers(1, 1 << 30, 600_000).astype(np.int32)])
+    for m in (1 << 22, 1 << 30):
+        args = BloomArgs(variant=BloomVariant.BLOCKED, m=m, k=1, B=512)
+        on_card = BP.plan_bloom_prune(rk, sk, args, device=cuda,
+                                      chunk_rows=512)
+        on_cpu = BP.plan_bloom_prune(rk, sk, args, device="cpu",
+                                     chunk_rows=512)
+        assert (on_card.pass2 is None) == (m == 1 << 22)
+        assert on_card.s_after == on_cpu.s_after
+        assert torch.equal(on_card.out.cpu(), on_cpu.out)
+
+
+@pytest.mark.parametrize("case", ["past_2048_chunks", "hot_key"])
+def test_bloom_prune_past_the_tpu_limits_on_card(cuda, case):
+    """The flagship's 13-bit geometry (m = 2^30) where the JAX planner
+    declines its Pallas prune: 2,049 chunks (past its 2,048-chunk cap) run
+    the hash partition, pass 2 and the probe kernels; one hot key (a run
+    filling a chunk, a skewed S) probes pass 1's order.  Survivors and
+    count equal the plain prune's on the card."""
+    from hwbloomradixjoin_tpu_torch.models import bloom_join
+    rng = np.random.default_rng(41)
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 30, k=1, B=512)
+    chunk_rows = 8 if case == "past_2048_chunks" else 512
+    n = 2049 * chunk_rows * 128 if case == "past_2048_chunks" else 700_000
+    sk = rng.integers(-2**31 + 1, 2**31, n, dtype=np.int64).astype(np.int32)
+    if case == "hot_key":
+        sk[:400_000] = sk[-1]
+    rk = np.concatenate([rng.choice(sk, 100_000),
+                         rng.integers(-2**31 + 1, 2**31, 100_000,
+                                      dtype=np.int64).astype(np.int32)])
+    _build.reset_launches()
+    plan = BP.plan_bloom_prune(rk, sk, args, device=cuda,
+                               chunk_rows=chunk_rows)
+    ran = dict(_build.LAUNCHES)
+    assert ran["partition_hash"] > 0 and ran["bloom_probe"] > 0
+    if case == "past_2048_chunks":
+        assert plan.pass2 is not None and plan.pass2.nchunks == 2049
+        assert ran["pass2_partition_hash"] > 0
+    else:
+        assert plan.pass2 is None and ran["pass2_partition_hash"] == 0
+    r, s = torch.from_numpy(rk).to(cuda), torch.from_numpy(sk).to(cuda)
+    mask, n_plain = bloom_join.bloom_prune(r, s, args)
+    out = plan.out[plan.out != PAD]
+    assert plan.s_after == int(n_plain) == out.numel()
+    assert torch.equal(torch.sort(out).values, torch.sort(s[mask]).values)
+

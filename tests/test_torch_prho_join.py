@@ -221,11 +221,12 @@ def test_multiplicity_guard_declines_like_jax():
 
 
 def test_fourteen_bit_count_geometry_raises_slice_2():
-    """Key spans in (2^27, 2^28] need 14 count-partition bits."""
+    """Key spans in (2^27, 2^28] need 14 count-partition bits: the wide
+    single-pass partition, which two passes do not provide."""
     lo, hi = 1, (1 << 27) + 5
     assert TP.plan_geometry_counts(lo, hi)[0] == 14
     rk = np.array([lo, hi, 77], np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 12"):
         TP.plan_prho_join(rk, rk, rk, rk, lo, hi, device="cpu")
 
 

@@ -138,11 +138,11 @@ def test_compact_no_cap_and_chunk_pad():
 
 def test_partition_rejects_wide_fanout_and_bad_shapes():
     keys = torch.zeros(8 * 128, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 12"):
         TR.partition_pass(keys, TR.RadixGeom(chunk_rows=8, part_bits=14))
     with pytest.raises(ValueError):
         TR.partition_pass(keys[:-1], TR.RadixGeom(chunk_rows=8, part_bits=2))
     with pytest.raises(ValueError):
         TR.compact_pass(keys, 0, 10, 8, cap_rows=12)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 5"):
+    with pytest.raises(ValueError, match="hash mode"):   # 12 of 0 bits
         TR.RadixGeom(hash_seed=3)

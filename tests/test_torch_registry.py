@@ -16,7 +16,8 @@ from hwbloomradixjoin_tpu.data import native
 from hwbloomradixjoin_tpu.models import run_join as jax_run_join
 from hwbloomradixjoin_tpu.types import KeyStats as JKeyStats
 from hwbloomradixjoin_tpu.types import Relation as JRelation
-from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
+from hwbloomradixjoin_tpu_torch.config import (BloomArgs, EngineConfig,
+                                               RadixConfig)
 from hwbloomradixjoin_tpu_torch.models import registry
 from hwbloomradixjoin_tpu_torch.models import run_join
 from hwbloomradixjoin_tpu_torch.types import KeyStats, Relation
@@ -202,17 +203,18 @@ def test_multiplicity_guard_falls_back(algo, tier):
 
 def test_fourteen_bit_count_span_raises_slice_2():
     """A key span in (2^27, 2^28] plans 14 count-partition bits: the
-    one-pass partition raises the two-pass slice's error, no fallback."""
+    one-pass partition raises the error of the wide single-pass partition
+    (which two passes do not lift), no fallback."""
     rk = np.array([1, 1 << 27, (1 << 27) + 9], np.int32)
     R = Relation.from_numpy(rk, rk, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 12"):
         run_join("PRHO", R, R)
 
 
 @pytest.mark.parametrize("algo,cfg,kw", [
     ("PRO", EngineConfig(materialize=True), {}),
     ("PRO", EngineConfig(), {"key8b": True}),
-    ("PRO", EngineConfig(), {"bloom": True}),
+    ("PRO", EngineConfig(), {"key8b": True, "bloom": True}),
     ("PRHO", EngineConfig(materialize=True), {"stats": None}),
 ])
 def test_unported_tiers_raise(algo, cfg, kw):
@@ -222,7 +224,7 @@ def test_unported_tiers_raise(algo, cfg, kw):
                             key8b=kw.get("key8b", False))
     S = Relation.from_numpy(sk, sp, device="cpu",
                             key8b=kw.get("key8b", False))
-    bloom = object() if kw.get("bloom") else None
+    bloom = BloomArgs() if kw.get("bloom") else None
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
         run_join(algo, R, S, cfg, bloom)
 
