@@ -9,7 +9,7 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
 2. build: compiles the kernels (csrc/*.cu, one nvcc per source, in
    parallel) into the package's git-ignored build directory and prints the
    build time;
-3. kernel vs twin: each of the eleven kernel rows against its plain
+3. kernel vs twin: each of the fourteen kernel rows against its plain
    PyTorch twin on the card on 4 chunks of CHUNK_ROWS=4096 rows: the PRO
    kernels at plan_geometry(1, 16_000_000), the count-table kernels at
    workload B's count geometry plan_geometry_counts(1, 128_000_000) =
@@ -21,8 +21,14 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    the hash regions against an m = 2^30, k = 1, B = 512 filter, over an S
    holding PAD, negative keys and keys at or above 2^31 - 2^20; the
    survivors also equal the plain prune's on the card and the reference
-   filter's (native.ref_bloom) on the host; integer outputs must match bit
-   for bit;
+   filter's (native.ref_bloom) on the host;
+   3e. the dense count (keys at lo - 1 and hi + 1, negative keys, PAD,
+   payloads at +-2^31 so the sum wraps, a length with a 3-key tail),
+   materialization at the count geometry of [1, 16M] (R payloads equal to
+   PAD kept as pairs) and the gathered probe at the JAX default geometry
+   (12 low bits) over a duplicate-heavy R, then with one bucket of R_CAP + 1
+   keys, which must report overflow;
+   integer outputs must match bit for bit;
 4. the PRO path: run_join("PRO") on 16M ⋈ 128M uniform at q=1 and q=0.01;
 4b. workload B (128M ⋈ 128M, q=1, payloads on the card): run_join for PRHO,
    PRH and NPO; the tier must be cuda_prho / cuda_prh / cuda_npo, the count
@@ -39,12 +45,23 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    reference's headline bloom run, BASELINE.md:43): the two-pass prune
    (10 + 3 bits), the same checks, and the survivor share beside the
    reference's 12.14 %;
-   every run_join above uses allow_dense=False and has the launch counts
-   reset just before and read just after; every kernel of its path must
-   have launched;
+   every run_join above uses allow_dense=False;
+4g. run_join("PRO") with EngineConfig() over 4's relations (the generator's
+   dense PK) at q = 1 and q = 0.01: the dense tier, the exact count and the
+   S checksum of the ht tier on the card;
+4h. EngineConfig(materialize=True) over the same relations at q = 1
+   (128,000,000 pairs) and q = 0.01: the cuda_materialize tier, the exact
+   count, and the pair multiset of the portable sort_scan_materialize on
+   the card;
+4i. radix_join_count (the general radix count join: 12 low bits, the
+   gathered probe) over 4's q = 1 relations: 128,000,000, no overflow;
+   every run of 4-4i has the launch counts reset just before and read just
+   after; every kernel of its path must have launched;
 5. kernel and twin times at the main paths' full shapes (the bloom kernels
    over 4d's and 4e's S, pass 2 in hash mode at the flagship's 10 + 3 bits,
-   where the twins fit beside the data), where each kernel's output must
+   where the twins fit beside the data; the dense count, materialization
+   and the gathered probe over 4g's, 4h's and 4i's q = 1 inputs), where
+   each kernel's output must
    again equal its twin's bit for bit, beside each kernel's bound (bytes
    moved over the card's memory rate, or int32 operations over its int32
    rate).
@@ -92,6 +109,12 @@ KERNELS = {   # wrapper name -> (route, source, TPU kernel it replaces)
                              "hwbloomradixjoin_tpu/ops/multipass.py:89"),
     "bloom_probe": ("cuda", SRC + "bloom.cu",
                     "hwbloomradixjoin_tpu/ops/bloom_pallas.py:93"),
+    "dense_count": ("cuda", SRC + "dense_join.cu",
+                    "hwbloomradixjoin_tpu/ops/dense_join.py:32"),
+    "materialize": ("cuda", SRC + "prho_join.cu",
+                    "hwbloomradixjoin_tpu/ops/prho_join.py:647"),
+    "gathered_probe": ("cuda", SRC + "gathered_probe.cu",
+                       "hwbloomradixjoin_tpu/ops/radix.py:577"),
 }
 # The least time the card could take: the larger of the bytes each function
 # must move (each input read once, each output written once) over the
@@ -105,12 +128,17 @@ INT32_OPS_PER_S = 67e12 / 4
 # A crc32c is 4 table lookups and 12 shifts, masks and xors; the hash
 # partition and hash-mode pass 2 take one in their histogram and one in
 # their scatter; the bloom probe one crc32c, one crapwow (2 products, 2 high
-# products, 6 more) and 8 operations a probe position at k = 1.
+# products, 6 more) and 8 operations a probe position at k = 1.  The
+# gathered probe's function, a per-bucket count of equal keys, needs no more
+# than a shared-memory hash insert of each R key and a hash probe of each S
+# key (a product, a shift, a load, a compare, an add and a loop step),
+# whatever the kernel's own sort and binary searches spend.
 OPS_PER_ELEM = {"partition": 14, "compact": 3, "bitmap_build": 7,
                 "bitmap_probe": 9, "partition_kv": 14, "table_build": 8,
                 "table_probe": 10, "partition_hash": 14 + 2 * 16,
                 "pass2_partition": 20, "pass2_partition_hash": 20 + 2 * 16,
-                "bloom_probe": 16 + 10 + 8 + 4}
+                "bloom_probe": 16 + 10 + 8 + 4, "dense_count": 5,
+                "materialize": 13, "gathered_probe": 6}
 # No single PyTorch call computes any of these functions; why, per kernel.
 NO_LIBRARY_CALL = {
     "partition": "torch.sort orders by a category computed first; the starts "
@@ -128,6 +156,11 @@ NO_LIBRARY_CALL = {
     "pass2_partition_hash": "as pass2_partition, with a crc32c category",
     "bloom_probe": "two hashes, a gather of filter words, a bit test, a "
                    "where and a sum",
+    "dense_count": "a range mask, its sum and a masked payload sum",
+    "materialize": "a bucket test, two gathers from the tables and three "
+                   "masked selects",
+    "gathered_probe": "a sort of R, two searchsorteds of S and a per-bucket "
+                      "capacity test",
 }
 
 
@@ -347,6 +380,98 @@ def compare_bloom_kernels(dev, rng, err) -> None:
           f"survivors = plain prune = reference filter", flush=True)
 
 
+def edge_stream(rng, n, lo, hi):
+    """Keys in [lo, hi], at lo - 1 and hi + 1, negative, above hi and PAD;
+    payloads over all of int32, +-2^31 included, so sums wrap."""
+    k = rng.integers(lo, hi + 1, n)
+    u = rng.random(n)
+    k[u < 0.3] = rng.integers(hi + 1, 2**31, int((u < 0.3).sum()))
+    k[u < 0.1] = rng.integers(-2**31 + 1, 0, int((u < 0.1).sum()))
+    k[(u > 0.90) & (u < 0.92)] = lo - 1
+    k[(u > 0.92) & (u < 0.94)] = hi + 1
+    k[u > 0.97] = PAD_KEY
+    p = rng.integers(-2**31, 2**31, n, dtype=np.int64)
+    p[u < 0.2] = 2**31 - 1
+    p[u > 0.8] = -2**31
+    return k.astype(np.int32), p.astype(np.int32)
+
+
+def compare_new_kernels(dev, rng, err) -> None:
+    """Phase 3e: the dense count, materialization and the gathered probe
+    against their twins on 4 chunks, at the main paths' geometries (dense
+    and materialize over [1, 16M]; the gathered probe at the JAX default
+    geometry, 12 low bits, with a duplicate-heavy R and with one bucket
+    holding one key past the capacity, which must report overflow)."""
+    import torch
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+    from hwbloomradixjoin_tpu_torch.ops import dense_join as D
+    from hwbloomradixjoin_tpu_torch.ops import prho_join as P
+    from hwbloomradixjoin_tpu_torch.ops import radix as X
+
+    lo, hi = 1, R_SIZE
+    n = 4 * B.CHUNK_ROWS * 128
+    sk, sp = edge_stream(rng, n, lo, hi)
+    k, p = torch.from_numpy(sk).to(dev), torch.from_numpy(sp).to(dev)
+    for m in (n, n - 3):               # whole 16-byte groups and a tail
+        got = D.dense_count_join(k[:m], p[:m], lo, hi)
+        record(err, "dense_count", got,
+               D.dense_count_join_plain(k[:m], p[:m], lo, hi))
+        hit = (sk[:m] >= lo) & (sk[:m] <= hi)
+        want = [int(hit.sum()), int(sp[:m][hit].astype(np.int64).sum()) % 2**32]
+        if got.tolist() != want:
+            raise AssertionError(f"dense {got.tolist()} != numpy {want}")
+    # materialize: unique R (payloads with PAD among them), S with hits
+    pb, shift, slr = P.plan_geometry_counts(lo, hi)
+    geom = X.RadixGeom(chunk_rows=B.CHUNK_ROWS, part_bits=pb, lo=lo, hi=hi,
+                       shift=shift)
+    rk = rng.choice(np.arange(lo, hi + 1, dtype=np.int32), n - 999,
+                    replace=False)
+    rp = rng.integers(-2**31, 2**31, len(rk), dtype=np.int64).astype(np.int32)
+    rp[::7] = PAD_KEY
+    sk[: n // 3] = rng.choice(rk, n // 3)
+    s_in, sp_in = torch.from_numpy(sk).to(dev), torch.from_numpy(sp).to(dev)
+    r_part = X.partition_pass_kv(X._chunk_pad(rk, n, dev),
+                                 X._chunk_pad(rp, n, dev), geom)
+    tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr)
+    s_part = X.partition_pass_kv(s_in, sp_in, geom)
+    args = (*tables, s_part[0], s_part[1], lo, shift, pb, slr)
+    out = P.materialize_pairs(*args)
+    record(err, "materialize", out, P.materialize_pairs_plain(*args))
+    n_pairs = int(np.isin(sk, rk).sum())
+    if int(out[3]) != n_pairs:
+        raise AssertionError(f"materialize count {int(out[3])} != {n_pairs}")
+    # gathered probe: duplicates (each key ~4 times), then a hot bucket
+    ggeom = X.RadixGeom()
+    rk = rng.integers(-R_SIZE // 8, R_SIZE // 8, n).astype(np.int32)
+    sk = np.concatenate([rng.choice(rk, n // 2),
+                         edge_stream(rng, n // 2, -R_SIZE // 8,
+                                     R_SIZE // 8)[0]])
+    hot = np.arange(X.R_CAP + 1, dtype=np.int64).astype(np.int32) * 4096
+    results = []
+    for r_keys in (rk, np.concatenate([rk[rk % 4096 != 0], hot])):
+        parts = []
+        for keys in (r_keys, sk):
+            parts += X.partition_pass(X._chunk_pad(keys, n, dev), ggeom)
+        got = X.gathered_probe_count(*parts, ggeom)
+        record(err, "gathered_probe", got,
+               X.gathered_probe_count_plain(*parts, ggeom))
+        results.append(got.tolist())
+    truth = int(native_count(rk, sk))
+    if results[0] != [truth, 0] or results[1][1] != 1:
+        raise AssertionError(f"gathered probe {results}, want [{truth}, 0] "
+                             "and an overflow")
+    print(f"kernel vs twin: bit-exact dense count, materialize at count "
+          f"geometry {(pb, shift, slr)} ({n_pairs} pairs), gathered probe "
+          f"{results[0]} and with a bucket of R_CAP + 1 keys {results[1]}",
+          flush=True)
+
+
+def native_count(rk, sk) -> int:
+    """ref_join's match count (the port's native ground truth)."""
+    from hwbloomradixjoin_tpu_torch.data import native
+    return native.ref_join(rk, np.zeros_like(rk), sk, np.zeros_like(sk))[0]
+
+
 def drive(algo, R, S, cfg, must, label, kind, bloom_args=None):
     """run_join with the launch counts reset just before and read just
     after; every kernel in `must` has to have launched.  Returns
@@ -378,7 +503,8 @@ def add_launches(total: dict, ran: dict) -> None:
 
 def run_pro_path(dev, q, kind, launches):
     """Phase 4, one selectivity: PRO 16M ⋈ 128M on cuda_radix.  Returns a
-    plan of the same inputs for kernel timing."""
+    plan of the same inputs for kernel timing, R and S (S's payloads on the
+    card too, for the dense and materializing phases)."""
     import torch
     from hwbloomradixjoin_tpu_torch.config import EngineConfig
     from hwbloomradixjoin_tpu_torch.data import generator as G
@@ -387,13 +513,13 @@ def run_pro_path(dev, q, kind, launches):
 
     params = G.WorkloadParams(r_size=R_SIZE, s_size=S_SIZE, nthreads=8,
                               selectivity=q)
-    rk, rp, sk, _ = G.build_workload(params)
+    rk, rp, sk, sp = G.build_workload(params)
     pad = (-len(sk)) % (bitmap_join.CHUNK_ROWS * 128)
     sk = np.concatenate([sk, np.full(pad, PAD_KEY, np.int32)])
+    sp = np.concatenate([sp, np.zeros(pad, np.int32)])
     R = Relation.from_numpy(rk, rp, device=dev, stats=G.r_key_stats(params))
-    # key-column projection: the count-only radix tier never reads S.payload
     S = Relation(key=torch.from_numpy(sk).to(dev),
-                 payload=torch.zeros(1, dtype=torch.int32, device=dev))
+                 payload=torch.from_numpy(sp).to(dev))
     must = ("partition", "bitmap_build", "bitmap_probe") if q == 1.0 \
         else ("compact",)
     res, st, _, ran = drive("PRO", R, S, EngineConfig(allow_dense=False),
@@ -532,6 +658,110 @@ def run_flagship(dev, kind, launches):
           f" ms for the two hash passes and the probe", flush=True)
 
 
+def run_dense(R, S, q, kind, launches):
+    """Phase 4g: the default config over the generator's dense PK (no
+    allow_dense=False): the dense tier, the exact count and the ht tier's
+    S checksum on the card."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+
+    res, st, sums, ran = drive("PRO", R, S, EngineConfig(), ("dense_count",),
+                               f"PRO 16M x 128M q={q}, EngineConfig()", kind)
+    _, ref_sums = plain_reference("PRO", R, S, f"dense q={q}")
+    expect = G.expected_uniform_match_count(S_SIZE, q)
+    if st.tier != "dense" or res.count() != expect \
+            or tuple(sums) != (0, ref_sums[1]):
+        raise AssertionError(f"dense q={q}: tier {st.tier} count "
+                             f"{res.count()} sums {sums}, want {expect} "
+                             f"(0, {ref_sums[1]})")
+    add_launches(launches, ran)
+
+
+def pair_order(r_pay, s_pay):
+    """The pairs sorted by (s_pay, r_pay): equal iff the multisets are."""
+    import torch
+    return torch.sort((s_pay.long() << 32) | (r_pay.long() & 0xFFFFFFFF)
+                      ).values
+
+
+def run_materialize(R, S, q, kind, launches):
+    """Phase 4h: EngineConfig(materialize=True): the cuda_materialize tier,
+    the exact count, and the pair multiset of the portable
+    sort_scan_materialize on the card.  Returns the plan of the same inputs
+    for kernel timing at q = 1, else None."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.ops import prho_join, xla_join
+
+    res, st, _, ran = drive(
+        "PRO", R, S, EngineConfig(materialize=True),
+        ("partition_kv", "table_build", "materialize"),
+        f"materialize 16M x 128M q={q}", kind)
+    expect = G.expected_uniform_match_count(S_SIZE, q)
+    if st.tier != "cuda_materialize" or res.count() != expect \
+            or res.r_payload.numel() != expect:
+        raise AssertionError(f"materialize q={q}: tier {st.tier} count "
+                             f"{res.count()} pairs {res.r_payload.numel()}"
+                             f" != {expect}")
+    t0 = time.perf_counter()
+    count, out_r, out_s, _ = xla_join.sort_scan_materialize(
+        R.key, R.payload, S.key, S.payload)
+    n = int(count)
+    same = n == expect and bool((pair_order(res.r_payload, res.s_payload)
+                                 == pair_order(out_r[:n], out_s[:n])).all())
+    if not same:
+        raise AssertionError(f"materialize q={q}: pairs differ from the "
+                             f"portable tier's ({n})")
+    print(f"materialize q={q}: {expect} pairs = sort_scan_materialize's on "
+          f"the card ({time.perf_counter() - t0:.1f}s)", flush=True)
+    add_launches(launches, ran)
+    del res, out_r, out_s
+    if q != 1.0:
+        return None
+    return prho_join.plan_materialize_join(R.key, R.payload, S.key,
+                                           S.payload, 1, R_SIZE,
+                                           device=R.device)
+
+
+def run_radix_count(R, S, kind, launches):
+    """Phase 4i: the general radix count join (12 low bits, the gathered
+    probe) at q = 1.  Returns its partitions for kernel timing."""
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.kernels import _build
+    from hwbloomradixjoin_tpu_torch.ops import radix as X
+    from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    count, overflow = X.radix_join_count(R.key, S.key, device=R.device)
+    wall = time.perf_counter() - t0
+    ran = dict(_build.LAUNCHES)
+    missing = [k for k in ("partition", "gathered_probe") if ran[k] == 0]
+    expect = G.expected_uniform_match_count(S_SIZE, 1.0)
+    if missing or count != expect or overflow:
+        raise AssertionError(f"radix_join_count: {count} overflow {overflow}"
+                             f" (want {expect}), never launched: {missing}")
+    add_launches(launches, ran)
+    geom = X.RadixGeom()
+    r_in = X._chunk_pad(R.key, geom.chunk_rows * 128, R.device)
+    parts = (*X.partition_pass(r_in, geom), *X.partition_pass(S.key, geom))
+    # the whole join (its result read back) and its three kernels alone
+    total = time_usec(lambda: X.radix_join_count(R.key, S.key,
+                                                 device=R.device), R.device)
+    phases = {"r_partition": time_usec(lambda: X.partition_pass(r_in, geom),
+                                       R.device),
+              "s_partition": time_usec(lambda: X.partition_pass(S.key, geom),
+                                       R.device),
+              "probe": time_usec(lambda: X.gathered_probe_count(*parts, geom),
+                                 R.device)}
+    print(f"radix_join_count 16M x 128M q=1 on {kind}: count={count} "
+          f"overflow={overflow} first call {wall * 1e3:.1f}ms, "
+          f"total={total / 1e3:.4f}ms ns/S-tuple={total * 1e3 / S_SIZE:.5f} "
+          + " ".join(f"{k}={v / 1e3:.4f}ms" for k, v in phases.items())
+          + f" launches={ran}", flush=True)
+    return parts
+
+
 def plain_reference(algo, R, S, label):
     """The ht tier (plain torch, an independent implementation) on the card."""
     from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
@@ -610,18 +840,22 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, err) -> dict:
+def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
+                 gp_parts, err) -> dict:
     """Phase 5: name -> (kernel ms, twin ms, bound ms, bound_by) at the main
     paths' full shapes: PRO's partition and probe of S at q=1, compaction
     of S at q=0.01, build of R; workload B's partition of S with payloads,
     table build from R and probe of S with payloads; 4d's pass 2 (range
     mode), pass 2 in hash mode at the flagship's 10 + 3 bits over 4e's S,
-    and 4e's hash partition and bloom probe of S.  Each kernel's
-    output there must equal its twin's bit for bit (folded into err)."""
+    and 4e's hash partition and bloom probe of S; 4g's dense count of S at
+    q=1, 4h's materialization of S at q=1 and 4i's gathered probe.  Each
+    kernel's output there must equal its twin's bit for bit (folded into
+    err)."""
     import torch
     from hwbloomradixjoin_tpu_torch.config import BloomArgs, BloomVariant
     from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
     from hwbloomradixjoin_tpu_torch.ops import bloom_pallas as BP
+    from hwbloomradixjoin_tpu_torch.ops import dense_join as D
     from hwbloomradixjoin_tpu_torch.ops import multipass as M
     from hwbloomradixjoin_tpu_torch.ops import prho_join as P
     from hwbloomradixjoin_tpu_torch.ops import radix as X
@@ -655,6 +889,16 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, err) -> dict:
     h2 = M.plan_pass2(*h1, BP.MAX_PART_BITS, part_bits - BP.MAX_PART_BITS,
                       prune.pgeom.chunk_rows, None, hash_seed=flag.seed,
                       hash_bits=hash_bits)
+    mb = mat_plan._intermediates()
+    mg, mslr = mat_plan.geom, mat_plan.slice_rows
+    mat_args = (*mb["tables"], *mb["s_part"], 1, mg.shift, mg.part_bits, mslr)
+    keys = mb["s_part"][0].reshape(-1)
+    mat_slots = torch.unique(keys[(keys >= 1) & (keys <= R_SIZE)]).numel()
+    del keys
+    ggeom = X.RadixGeom()
+    f_words = ((1 << ggeom.part_bits) + 1) * 4
+    gp_starts = f_words * (gp_parts[1].numel() + gp_parts[3].numel()) \
+        // (ggeom.cat_rows * 128)
     # name -> (kernel, twin, bytes read, input elements)
     pairs = {
         "partition": (lambda: X.partition_pass(p1.sk_in, g),
@@ -701,6 +945,22 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, err) -> dict:
             lambda: BP.bloom_probe_prune(words, hashed, prune.args),
             lambda: BP.bloom_probe_prune_plain(words, hashed, prune.args),
             nbytes(hashed, words), hashed.numel()),
+        "dense_count": (lambda: D.dense_count_join(*dense_in, 1, R_SIZE),
+                        lambda: D.dense_count_join_plain(*dense_in, 1,
+                                                         R_SIZE),
+                        nbytes(*dense_in), dense_in[0].numel()),
+        # S's two columns, and the two 4-byte slots of each distinct
+        # in-range S key
+        "materialize": (lambda: P.materialize_pairs(*mat_args),
+                        lambda: P.materialize_pairs_plain(*mat_args),
+                        nbytes(*mb["s_part"]) + 8 * mat_slots,
+                        mb["s_part"][0].numel()),
+        # both partitions once, and the F + 1 starts words of each chunk
+        "gathered_probe": (
+            lambda: X.gathered_probe_count(*gp_parts, ggeom),
+            lambda: X.gathered_probe_count_plain(*gp_parts, ggeom),
+            nbytes(gp_parts[0], gp_parts[2]) + gp_starts,
+            gp_parts[0].numel() + gp_parts[2].numel()),
     }
     times = {}
     for name, (kern, plain, read, elems) in pairs.items():
@@ -759,6 +1019,8 @@ def main():
 
     compare_bloom_kernels(dev, rng, err)
     t0 = done("3d (bloom kernels vs twins)", t0)
+    compare_new_kernels(dev, rng, err)
+    t0 = done("3e (dense, materialize, gathered probe vs twins)", t0)
 
     launches = {k: 0 for k in KERNELS}
     pro = {q: run_pro_path(dev, q, kind, launches) for q in (1.0, 0.01)}
@@ -772,12 +1034,23 @@ def main():
     t0 = done("4d (two-pass PRO)", t0)
     bpro = run_bpro(*pro[0.01][1:], kind, launches)
     t0 = done("4e (BPRO 16M x 128M)", t0)
+    for q in (1.0, 0.01):
+        run_dense(*pro[q][1:], q, kind, launches)
+    t0 = done("4g (dense PRO, EngineConfig())", t0)
+    mat_plan = [run_materialize(*pro[q][1:], q, kind, launches)
+                for q in (1.0, 0.01)][0]
+    torch.cuda.empty_cache()
+    t0 = done("4h (materialize)", t0)
+    gp_parts = run_radix_count(*pro[1.0][1:], kind, launches)
+    t0 = done("4i (radix_join_count)", t0)
+    dense_in = (pro[1.0][2].key, pro[1.0][2].payload)
     del pro
     run_flagship(dev, kind, launches)
     torch.cuda.empty_cache()
     t0 = done("4f (BRJ 128M x 1.024B)", t0)
 
-    times = time_kernels(dev, pro_plans, b_plan, two_pass, bpro, err)
+    times = time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in,
+                         mat_plan, gp_parts, err)
     done("5 (kernel times)", t0)
     rows = [{"name": name, "route": route, "source": source,
              "replaces": replaces, "launches": launches[name],

@@ -7,10 +7,12 @@ use (``kernels/_build.py``), with a plain PyTorch twin that runs on CPU
 tensors.  Importing the package builds and loads nothing.
 
 Ported so far: the PRO bitmap radix join (unique build side, count only, one
-device), the count-table engines (PRHO, PRH, NPO, and PRO over a non-unique
-build side, with both payload checksums) and the portable ``ht``/``sortscan``
-tiers; see ROADMAP.md.  Entry points run on the card unless given
-``device="cpu"``.
+or two partition passes), the count-table engines (PRHO, PRH, NPO, and PRO
+over a non-unique build side, with both payload checksums), the bloom
+pre-filter, the dense fast path, materialization, the general radix count
+join (``ops.radix.radix_join_count``) and the portable ``ht``/``sortscan``/
+``materialize`` tiers; KEY_8B is not (see ROADMAP.md).  Entry points run on
+the card unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

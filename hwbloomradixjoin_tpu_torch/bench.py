@@ -12,8 +12,10 @@ parallel_radix_join_bloom.c:1509-1547).  The same environment variables as
 the root bench: BENCH_R, BENCH_S, BENCH_Q, BENCH_BITS, BENCH_INNER,
 BENCH_REPEATS, BENCH_ALGO, BENCH_DENSE.  Logs go to stderr.
 
-Columnar projection: the count query reads only the key column, so S's
-payload column is never allocated on the card.
+Columnar projection: the radix tier's count query reads only the key
+column, so S's payload column is never allocated on the card; with
+BENCH_DENSE=1 the planner takes the dense fast path, which sums S's
+payloads, so they go to the card too.
 
 Baseline: the reference's best full-scale CPU number, PRO 128M⋈1.024B at
 2.98 ns/tuple (isengard, BASELINE.md).  vs_baseline = ours / reference.
@@ -49,19 +51,22 @@ def run_bench(device, r_size: int, s_size: int, selectivity: float = 1.0,
     t0 = time.perf_counter()
     params = G.WorkloadParams(r_size=r_size, s_size=s_size, nthreads=8,
                               selectivity=selectivity)
-    rk, rp, sk, _ = G.build_workload(params)
+    rk, rp, sk, sp = G.build_workload(params)
     log(f"datagen: {time.perf_counter() - t0:.1f}s")
 
     # pad S to the partition chunk multiple on the host (one copy on device)
     pad = (-len(sk)) % (bitmap_join.CHUNK_ROWS * 128)
     if pad:
         sk = np.concatenate([sk, np.full(pad, PAD_KEY, np.int32)])
+        sp = np.concatenate([sp, np.zeros(pad, np.int32)])
     R = Relation.from_numpy(rk, rp, device=device,
                             stats=G.r_key_stats(params))
-    # key-column projection: the count query never reads S.payload
+    # key-column projection: the radix tier's count never reads S.payload
     S = Relation(key=torch.from_numpy(sk).to(device),
-                 payload=torch.zeros(1, dtype=torch.int32, device=device))
-    del sk
+                 payload=torch.from_numpy(sp).to(device) if allow_dense
+                 else torch.zeros(1, dtype=torch.int32, device=device))
+    del sk, sp
+    want_tier = "dense" if allow_dense else "cuda_radix"
     cfg = EngineConfig(radix=RadixConfig(num_radix_bits=bits),
                        allow_dense=allow_dense)
 
@@ -69,7 +74,7 @@ def run_bench(device, r_size: int, s_size: int, selectivity: float = 1.0,
     for i in range(repeats):
         result, stats, _ = run_join(algo, R, S, cfg, None, inner_repeats=inner)
         # the placeholder payload is only valid on the count-only radix tier
-        if stats.tier != "cuda_radix":
+        if stats.tier != want_tier:
             raise RuntimeError(
                 f"bench workload fell off the kernel tier to {stats.tier}")
         log(f"run {i}: tier={stats.tier} {stats.total_usec / 1e6:.6f}s "

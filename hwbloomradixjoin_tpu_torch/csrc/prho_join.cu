@@ -33,6 +33,19 @@
 // reduces, then adds once into the 3-word output: word 0 the count, the low
 // halves of words 1 and 2 the two sums (32-bit atomics, so they wrap).
 // Bound: the S stream plus one gather of two 4-byte slots per in-range key.
+//
+//   hbrj_materialize  <- materialize_pairs (_materialize_kernel_for, prho_join.py:647)
+//
+// Materialize (unique R: every count slot 0 or 1, so the payload-sum slot is
+// the R payload): the probe's flat stream and bucket test, writing three
+// int32 images congruent with partitioned S, slot i = (r_pay, s_pay, key) of
+// S key i where its count slot is > 0 and PAD elsewhere, plus the match count
+// (block-reduced, one 64-bit atomic per block).  The TPU kernel staged each
+// chunk's run window into VMEM and emitted a staged-order image with window
+// slack; the flat image has no slack and no descriptors.  Order is not part
+// of the contract: the pair multiset and the count are.  Bound: bytes, the
+// S stream in (keys, payloads), the three images out, and one gather of two
+// 4-byte slots per in-range key.
 
 #include <cuda_runtime.h>
 #include <cub/block/block_reduce.cuh>
@@ -120,6 +133,54 @@ __global__ void table_probe_kernel(const int* __restrict__ cnt,
   }
 }
 
+constexpr int kPadKey = INT32_MIN;
+
+struct Pair {
+  int r, s, k;
+};
+
+__device__ __forceinline__ Pair emit(int key, int s_pay, const int* __restrict__ cnt,
+                                     const int* __restrict__ sums, int lo, int shift,
+                                     int F, long long sl_words,
+                                     unsigned long long& count) {
+  const int norm = (int)((unsigned)key - (unsigned)lo);   // int32 wrap, as on the TPU
+  const int b = norm >> shift;                            // arithmetic shift
+  if (b < 0 || b >= F) return {kPadKey, kPadKey, kPadKey};
+  const long long slot =
+      (long long)b * sl_words + ((unsigned)norm & ((1u << shift) - 1u));
+  if (__ldg(cnt + slot) <= 0) return {kPadKey, kPadKey, kPadKey};
+  ++count;
+  return {__ldg(sums + slot), s_pay, key};
+}
+
+// Flat stream over partitioned S, 16 bytes of keys and of payloads a thread
+// and step; three int4 stores of the pair image, PAD where no match.
+__global__ void materialize_kernel(const int* __restrict__ cnt,
+                                   const int* __restrict__ sums,
+                                   const int4* __restrict__ s, const int4* __restrict__ sp,
+                                   long long n4, int4* __restrict__ out_r,
+                                   int4* __restrict__ out_s, int4* __restrict__ out_k,
+                                   unsigned long long* __restrict__ out_count, int lo,
+                                   int shift, int F, long long sl_words) {
+  unsigned long long count = 0;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * kThreads) {
+    const int4 k = s[i];
+    const int4 p = sp[i];
+    const Pair x = emit(k.x, p.x, cnt, sums, lo, shift, F, sl_words, count);
+    const Pair y = emit(k.y, p.y, cnt, sums, lo, shift, F, sl_words, count);
+    const Pair z = emit(k.z, p.z, cnt, sums, lo, shift, F, sl_words, count);
+    const Pair w = emit(k.w, p.w, cnt, sums, lo, shift, F, sl_words, count);
+    out_r[i] = make_int4(x.r, y.r, z.r, w.r);
+    out_s[i] = make_int4(x.s, y.s, z.s, w.s);
+    out_k[i] = make_int4(x.k, y.k, z.k, w.k);
+  }
+  using Reduce64 = cub::BlockReduce<unsigned long long, kThreads>;
+  __shared__ typename Reduce64::TempStorage t_count;
+  const unsigned long long total = Reduce64(t_count).Sum(count);
+  if (threadIdx.x == 0 && total) atomicAdd(out_count, total);
+}
+
 }  // namespace
 
 extern "C" {
@@ -162,6 +223,24 @@ int hbrj_table_probe(const int* cnt, const int* sums, const int* s, const int* s
       table_probe_kernel<false><<<grid, kThreads, 0, stream>>>(
           cnt, tbl, s4, nullptr, n4, out, lo, shift, F, sl_words);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// s, sp: n int32 keys and payloads (n % 4 == 0, 16-byte aligned); out_r,
+// out_s, out_k: n int32 each, overwritten; count: one uint64, overwritten.
+int hbrj_materialize(const int* cnt, const int* sums, const int* s, const int* sp,
+                     long long n, int* out_r, int* out_s, int* out_k,
+                     unsigned long long* count, int lo, int shift, int F,
+                     long long sl_words, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned long long), stream);
+  if (err) return (int)err;
+  const long long n4 = n / 4;
+  if (n4) {
+    materialize_kernel<<<hbrj::grid_for(n4, kThreads), kThreads, 0, stream>>>(
+        cnt, sums, reinterpret_cast<const int4*>(s), reinterpret_cast<const int4*>(sp),
+        n4, reinterpret_cast<int4*>(out_r), reinterpret_cast<int4*>(out_s),
+        reinterpret_cast<int4*>(out_k), count, lo, shift, F, sl_words);
   }
   return (int)cudaGetLastError();
 }

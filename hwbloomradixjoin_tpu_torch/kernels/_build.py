@@ -44,7 +44,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 LAUNCHES = {"partition": 0, "compact": 0, "bitmap_build": 0,
             "bitmap_probe": 0, "partition_kv": 0, "table_build": 0,
             "table_probe": 0, "partition_hash": 0, "pass2_partition": 0,
-            "pass2_partition_hash": 0, "bloom_probe": 0}
+            "pass2_partition_hash": 0, "bloom_probe": 0, "dense_count": 0,
+            "materialize": 0, "gathered_probe": 0}
 
 _vp, _i, _u, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, \
     ctypes.c_longlong
@@ -59,6 +60,11 @@ _SIGNATURES = {
     "hbrj_bitmap_probe": [_vp, _vp, _ll, _vp, _i, _i, _i, _ll, _vp],
     "hbrj_table_build": [_vp, _vp, _ll, _vp, _vp, _ll, _i, _i, _i, _ll, _vp],
     "hbrj_table_probe": [_vp, _vp, _vp, _vp, _ll, _vp, _i, _i, _i, _ll, _vp],
+    "hbrj_materialize": [_vp, _vp, _vp, _vp, _ll, _vp, _vp, _vp, _vp, _i, _i,
+                         _i, _ll, _vp],
+    "hbrj_dense_count": [_vp, _vp, _ll, _vp, _i, _i, _vp],
+    "hbrj_gathered_probe": [_vp, _vp, _ll, _vp, _vp, _ll, _i, _i, _i, _i, _vp,
+                            _vp],
 }
 
 _lock = threading.Lock()

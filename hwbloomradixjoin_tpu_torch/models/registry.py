@@ -1,14 +1,17 @@
 """Algorithm registry, the tier planner and run_join.
 
 Counterpart of ``hwbloomradixjoin_tpu/models/registry.py`` (lines 82-173,
-344-529, 632-791).  ``select_tier`` is ported whole; the kernel tiers are
-``cuda_radix`` (the JAX package's ``pallas_radix``: PRO/RJ over a unique
-build side, one or two partition passes) and ``cuda_prho``/``cuda_prh``/
+230-252, 344-529, 572-791).  ``select_tier`` is ported whole; the kernel
+tiers are ``cuda_radix`` (the JAX package's ``pallas_radix``: PRO/RJ over a
+unique build side, one or two partition passes), ``cuda_prho``/``cuda_prh``/
 ``cuda_npo`` (its ``pallas_prho``/``pallas_prh``/``pallas_npo``: the
-count-table engines).  A tier runs its CUDA kernels on tensors on the card
-and their plain twins on CPU tensors, so CPU tests walk the same planner
-path as the card.  Tiers whose code is not ported yet raise
-NotImplementedError naming their ROADMAP slice.
+count-table engines), ``cuda_materialize`` (its ``pallas_materialize``: the
+pairs of a unique R) and ``dense`` (a declared dense primary key, one stream
+over S).  A tier runs its CUDA kernels on tensors on the card and their plain
+twins on CPU tensors, so CPU tests walk the same planner path as the card.
+The portable tiers are ``ht``, ``sortscan`` and ``materialize`` (plain
+torch).  Tiers whose code is not ported yet raise NotImplementedError naming
+their ROADMAP slice.
 
 A bloom filter (``bloom_args``) prunes S ahead of the join, as the JAX
 package's ``_bloom_prologue`` does: the kernel prune (hash partition and
@@ -34,8 +37,8 @@ import torch
 from hwbloomradixjoin_tpu_torch.config import BloomArgs, EngineConfig
 from hwbloomradixjoin_tpu_torch.models import bloom_join
 from hwbloomradixjoin_tpu_torch.ops import (bitmap_join, bloom_pallas,
-                                            ht_join, multipass, prho_join,
-                                            xla_join)
+                                            dense_join, ht_join, multipass,
+                                            prho_join, xla_join)
 from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
 from hwbloomradixjoin_tpu_torch.ops.radix import LANES
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY, JoinResult, Relation
@@ -50,10 +53,8 @@ BITMAP_MAX_SPAN = 1 << 31
 
 # Tiers select_tier can pick whose engines are not ported yet.
 UNPORTED_TIERS = {
-    "materialize": "materialization, ROADMAP slice 4",
     "key8b": "KEY_8B (16-byte tuples), ROADMAP slice 6",
-    "materialize8b": "KEY_8B materialization, ROADMAP slices 4 and 6",
-    "dense": "the dense fast path, ROADMAP slice 7",
+    "materialize8b": "KEY_8B materialization, ROADMAP slice 6",
 }
 
 
@@ -141,7 +142,8 @@ def key_ranges(R: Relation):
     return key_range, wide_range
 
 
-KERNEL_TIERS = ("cuda_radix", "cuda_prho", "cuda_prh", "cuda_npo")
+KERNEL_TIERS = ("cuda_radix", "cuda_prho", "cuda_prh", "cuda_npo",
+                "cuda_materialize")
 
 
 def _bloom_prologue(R: Relation, S: Relation, bloom_args, allow_kernel=True):
@@ -212,10 +214,11 @@ def plan_kernel_join(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
 
     cuda_radix plans the bitmap join over wide_range (two passes when
     cfg.radix.passes == 2 and the two-pass planner accepts, else one); the
-    count-table tiers plan over key_range and return None when the
-    multiplicity guard declines.  With a filter the plan is a FilteredPlan;
-    PRHO and PRO over a non-unique R (cuda_prho) take the order-preserving
-    prune.
+    count-table tiers and cuda_materialize plan over key_range and return
+    None when the multiplicity guard declines (for cuda_materialize: any
+    repeated R key).  With a filter the plan is a FilteredPlan; PRHO, PRO
+    over a non-unique R (cuda_prho) and cuda_materialize take the
+    order-preserving prune.
     """
     prune = _bloom_prologue(R, S, bloom_args,
                             allow_kernel=tier in ("cuda_radix", "cuda_prh"))
@@ -238,9 +241,10 @@ def plan_kernel_join(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
         # the plain prune's buffer is S chunk-padded: pad S's payloads alike
         s_pay = S.payload if prune is None else radix_ops._chunk_pad(
             S.payload, prune.out.numel(), S.device)
-        plan = prho_join.plan_prho_join(R.key, R.payload, s_key, s_pay,
-                                        *key_range, device=S.device,
-                                        num_radix_bits=bits)
+        plan_fn = prho_join.plan_materialize_join \
+            if tier == "cuda_materialize" else prho_join.plan_prho_join
+        plan = plan_fn(R.key, R.payload, s_key, s_pay, *key_range,
+                       device=S.device, num_radix_bits=bits)
     if plan is None or prune is None:
         return plan
     return FilteredPlan(prune=prune, join=plan)
@@ -255,8 +259,10 @@ def _phase_sum(phases: dict, names) -> float:
 
 def _run_kernel(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
                 bloom_args, inner_repeats: int, key_range, wide_range):
-    """A kernel tier: PRO/RJ on the radix engine (count only) or the
-    count-table engines (count and both checksums).
+    """A kernel tier: PRO/RJ on the radix engine (count only), the
+    count-table engines (count and both checksums) or the materialization
+    (count and the matched pairs, compacted after timing by the key image:
+    a payload may equal PAD).
 
     NPO's phase attribution follows its two-phase contract: the S partition
     counts as probe work and no partition time is reported (JAX
@@ -274,14 +280,21 @@ def _run_kernel(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
               for name, fn in plan.phase_fns().items()}
     total_usec = time_usec(plan.full, plan.device,
                            calls=max(1, inner_repeats))
+    pairs = {}
     if tier == "cuda_radix":
         cnt, sums = plan.full_count(), (0, 0)
+    elif tier == "cuda_materialize":
+        out_r, out_s, out_k, count = plan.full()
+        keep = out_k != PAD_KEY
+        cnt, sums = int(count), (0, 0)
+        pairs = dict(r_payload=out_r[keep], s_payload=out_s[keep])
     else:
         cnt, r_sum, s_sum = plan.full_sums()
         sums = (r_sum, s_sum)
     part_usec = _phase_sum(phases, ("bloom_partition", "bloom_probe",
                                     "compact", "s_partition", "s_pass2"))
-    probe_usec = phases["probe"]
+    probe_usec = phases["materialize" if tier == "cuda_materialize"
+                        else "probe"]
     if tier == "cuda_npo":
         part_usec, probe_usec = 0.0, probe_usec + part_usec
     s_after = getattr(plan, "s_after", None)
@@ -293,7 +306,86 @@ def _run_kernel(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
         num_s_tuples=S.capacity, s_after_filter=s_after,
         compile_usec=compile_usec, tier=tier, raw_total_usec=total_usec,
         floor_usec=0.0, phases=phases)
-    return JoinResult(total_results=cnt, s_after_filter=s_after), stats, sums
+    return (JoinResult(total_results=cnt, s_after_filter=s_after, **pairs),
+            stats, sums)
+
+
+def _run_dense(R: Relation, S: Relation, bloom_args, inner_repeats: int,
+               key_range):
+    """The dense tier: R is a declared dense primary key over key_range, so
+    the join is one stream over S (ops/dense_join.py), after the
+    order-preserving prune with a filter (S's payloads stay beside the
+    keys).  Sums are (0, S checksum), as in the JAX package."""
+    lo, hi = key_range
+    t0 = time.perf_counter()
+    prune = _bloom_prologue(R, S, bloom_args, allow_kernel=False)
+    s_key, s_pay = S.key, S.payload
+    if prune is not None:
+        s_key = prune.out
+        s_pay = radix_ops._chunk_pad(S.payload, s_key.numel(), S.device)
+    compile_usec = (time.perf_counter() - t0) * 1e6
+
+    def probe():
+        return dense_join.dense_count_join(s_key, s_pay, lo, hi)
+
+    def full():
+        if prune is not None:
+            prune.prune()
+        return probe()
+
+    phases = {} if prune is None else {
+        name: time_usec(fn, S.device)
+        for name, fn in prune.phase_fns().items()}
+    phases["probe"] = time_usec(probe, S.device)
+    total_usec = time_usec(full, S.device, calls=max(1, inner_repeats))
+    cnt, s_sum = full().tolist()
+    s_after = None if prune is None else prune.s_after
+    stats = JoinStats(
+        total_usec=total_usec, build_usec=phases.get("bloom_build", 0.0),
+        part_usec=phases.get("bloom_probe", 0.0), probe_usec=phases["probe"],
+        result=cnt, num_s_tuples=S.capacity, s_after_filter=s_after,
+        compile_usec=compile_usec, tier="dense", raw_total_usec=total_usec,
+        phases=phases)
+    return (JoinResult(total_results=cnt, s_after_filter=s_after), stats,
+            (0, s_sum))
+
+
+def _run_materialize(R: Relation, S: Relation, bloom_args,
+                     inner_repeats: int):
+    """The portable materialize tier (plain torch): the sort-based pairs of
+    a unique R, or, for any other R, all pairs, the output sized by a
+    pre-count over S with PAD mapped to PAD + 1 (JAX registry.py:691-701).
+    The filter's prune runs inside the timed join."""
+    cap = None
+    if not (R.stats is not None and R.stats.is_unique):
+        s_pre = torch.where(S.key == PAD_KEY, PAD_KEY + 1, S.key)
+        cap = max(int(xla_join.sort_scan_count(R.key, R.payload, s_pre,
+                                               S.payload)[0]), 1)
+
+    def full():
+        s_key, n = S.key, None
+        if bloom_args is not None:
+            mask, n = bloom_join.bloom_prune(R.key, S.key, bloom_args)
+            s_key = torch.where(mask, S.key, PAD_KEY)
+        if cap is None:
+            out = xla_join.sort_scan_materialize(R.key, R.payload, s_key,
+                                                 S.payload)
+        else:
+            out = xla_join.sort_scan_materialize_multi(R.key, R.payload,
+                                                       s_key, S.payload, cap)
+        return out, n
+
+    total_usec = time_usec(full, S.device, calls=max(1, inner_repeats))
+    (count, out_r, out_s, _), n = full()
+    cnt = int(count)
+    s_after = None if n is None else int(n)
+    stats = JoinStats(
+        total_usec=total_usec, probe_usec=total_usec, result=cnt,
+        num_s_tuples=S.capacity, s_after_filter=s_after, tier="materialize",
+        raw_total_usec=total_usec, phases={"probe": total_usec})
+    return (JoinResult(total_results=cnt, s_after_filter=s_after,
+                       r_payload=out_r[:cnt], s_payload=out_s[:cnt]),
+            stats, (0, 0))
 
 
 def _run_portable(tier: str, R: Relation, S: Relation, bloom_args,
@@ -352,10 +444,13 @@ def run_join(name: str, R: Relation, S: Relation,
     """Execute a named join algorithm; returns (JoinResult, JoinStats, sums).
 
     sums are the (R, S) payload checksums mod 2^32 on the count-table and
-    portable tiers (S's is 0 on cuda_prh) and (0, 0) on the count-only radix
-    tier, as in the JAX package.  With bloom_args, S is pruned by R's
-    filter first and JoinResult/JoinStats.s_after_filter hold the survivor
-    count (NPO ignores the filter, as the reference's B_NPO wrappers do).
+    portable count tiers (S's is 0 on cuda_prh), (0, S's) on the dense tier
+    and (0, 0) on the count-only radix tier and the materializing tiers, as
+    in the JAX package.  With cfg.materialize, JoinResult.r_payload and
+    .s_payload hold the matched pairs (device tensors, any order).  With
+    bloom_args, S is pruned by R's filter first and
+    JoinResult/JoinStats.s_after_filter hold the survivor count (NPO ignores
+    the filter, as the reference's B_NPO wrappers do).
     """
     spec = ALGORITHMS[name]
     if spec.family == "npo":
@@ -364,6 +459,18 @@ def run_join(name: str, R: Relation, S: Relation,
     tier = select_tier(spec, R, cfg, key_range, wide_range)
     if tier in UNPORTED_TIERS:
         raise NotImplementedError(f"tier {tier}: {UNPORTED_TIERS[tier]}")
+    if tier == "dense":
+        # the dense path needs no table, so the count-table size cap
+        # (HT_MAX_SLOTS) must not gate it: read the range off the stats
+        return _run_dense(R, S, bloom_args, inner_repeats,
+                          (int(R.stats.min_key), int(R.stats.max_key)))
+    if tier == "materialize":
+        if key_range is not None and cfg.radix.use_kernels:
+            out = _run_kernel("cuda_materialize", R, S, cfg, bloom_args,
+                              inner_repeats, key_range, wide_range)
+            if out is not None:
+                return out
+        return _run_materialize(R, S, bloom_args, inner_repeats)
     if tier in KERNEL_TIERS:
         out = _run_kernel(tier, R, S, cfg, bloom_args, inner_repeats,
                           key_range, wide_range)

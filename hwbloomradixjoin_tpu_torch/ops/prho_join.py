@@ -1,6 +1,7 @@
-"""The count-table engines: PRHO, PRH, NPO and PRO over a non-unique build.
+"""The count-table engines (PRHO, PRH, NPO, PRO over a non-unique build) and
+materialization.
 
-Counterpart of ``hwbloomradixjoin_tpu/ops/prho_join.py:1-645``.  The join is
+Counterpart of ``hwbloomradixjoin_tpu/ops/prho_join.py``.  The join is
 
     R partition (keys + payloads) -> table build -> S partition
     (keys + payloads; keys only for PRH) -> table probe
@@ -14,9 +15,11 @@ count and both payload checksums, all sums mod 2^32 like the reference's
 unsigned accumulators.
 
 ``plan_geometry_counts`` is the JAX package's, unchanged, so both packages
-plan the same layout.  ``table_build`` and ``probe_count_sums`` launch the
-CUDA kernels of ``csrc/prho_join.cu`` for tensors on the card and run their
-plain twins (``build_tables``, ``probe_count_sums_plain``) for tensors on the
+plan the same layout.  ``table_build``, ``probe_count_sums`` and
+``materialize_pairs`` (the last phase of a materializing join over a unique
+R, ``MaterializePlan``) launch the CUDA kernels of ``csrc/prho_join.cu`` for
+tensors on the card and run their plain twins (``build_tables``,
+``probe_count_sums_plain``, ``materialize_pairs_plain``) for tensors on the
 CPU.  Like the bitmap kernels they stream their input flat, so the TPU
 kernels' DMA windows (``derive_descs``, ``_probe_geom``) have no counterpart.
 """
@@ -32,6 +35,7 @@ from hwbloomradixjoin_tpu_torch.kernels import _build
 from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
 from hwbloomradixjoin_tpu_torch.ops.bitmap_join import CHUNK_ROWS
 from hwbloomradixjoin_tpu_torch.ops.radix import LANES
+from hwbloomradixjoin_tpu_torch.types import PAD_KEY
 
 MAX_SLICE_ROWS = 128       # slice covers 2^14 keys = 64 KiB of counts
 MASK32 = 0xFFFFFFFF
@@ -161,11 +165,7 @@ def probe_count_sums(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
                                       shift, part_bits, slice_rows)
     parts = (s_part,) if sp_part is None else (s_part, sp_part)
     _build.check_cuda(cnt_tbl, pay_tbl, *parts)
-    nslots = (1 << part_bits) * slice_rows * LANES
-    if cnt_tbl.numel() != nslots or pay_tbl.numel() != nslots:
-        raise ValueError(f"tables of {cnt_tbl.numel()}, {pay_tbl.numel()} "
-                         f"slots for geometry ({part_bits}, {shift}, "
-                         f"{slice_rows})")
+    _check_tables(cnt_tbl, pay_tbl, part_bits, shift, slice_rows)
     if sp_part is not None and sp_part.shape != s_part.shape:
         raise ValueError(f"payloads {tuple(sp_part.shape)} beside keys "
                          f"{tuple(s_part.shape)}")
@@ -176,6 +176,73 @@ def probe_count_sums(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
                   s_part.numel(), out.data_ptr(), lo, shift, 1 << part_bits,
                   slice_rows * LANES)
     return out
+
+
+def _check_tables(cnt_tbl, pay_tbl, part_bits: int, shift: int,
+                  slice_rows: int) -> None:
+    _check_slices(shift, slice_rows)
+    nslots = (1 << part_bits) * slice_rows * LANES
+    if cnt_tbl.numel() != nslots or pay_tbl.numel() != nslots:
+        raise ValueError(f"tables of {cnt_tbl.numel()}, {pay_tbl.numel()} "
+                         f"slots for geometry ({part_bits}, {shift}, "
+                         f"{slice_rows})")
+
+
+def materialize_pairs_plain(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
+                            s_part: torch.Tensor, sp_part: torch.Tensor,
+                            lo: int, shift: int, part_bits: int,
+                            slice_rows: int):
+    """Plain twin of materialize_pairs: (out_r, out_s, out_k, count).
+
+    Slot i of the three int32 images holds (r_pay, s_pay, key) when S key i
+    lies in a bucket (the arithmetic test of probe_count_sums_plain) and its
+    count slot is > 0, PAD otherwise; count is an int64 scalar.
+    """
+    key = s_part.long()
+    norm = (key - lo + (1 << 31)) % (1 << 32) - (1 << 31)   # int32 wrap
+    bucket = norm >> shift
+    ok = (bucket >= 0) & (bucket < (1 << part_bits))
+    slot = torch.where(ok, bucket * (slice_rows * LANES)
+                       + (norm & ((1 << shift) - 1)), 0)
+    hit = ok & (cnt_tbl.reshape(-1)[slot] > 0)
+    pad = torch.tensor(PAD_KEY, dtype=torch.int32, device=s_part.device)
+    return (torch.where(hit, pay_tbl.reshape(-1)[slot], pad),
+            torch.where(hit, sp_part, pad), torch.where(hit, s_part, pad),
+            hit.sum())
+
+
+def materialize_pairs(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
+                      s_part: torch.Tensor, sp_part: torch.Tensor, lo: int,
+                      shift: int, part_bits: int, slice_rows: int):
+    """Emit each matched S slot's (r_pay, s_pay, key) for a unique R.
+
+    Returns three int32 images of s_part's shape, slot for slot: the pair
+    and key where S key i has a match, PAD elsewhere; and the match count
+    as an int64 scalar tensor.  The tables must come from a unique R (every
+    count slot 0 or 1: the payload slot then holds the R payload).  This
+    flat layout replaces the TPU kernel's staged-window image; the contract
+    is the pair multiset and the count, not the order.  Replaces the Pallas
+    materialize_pairs (prho_join.py:759).
+    """
+    _check_tables(cnt_tbl, pay_tbl, part_bits, shift, slice_rows)
+    if sp_part.shape != s_part.shape:
+        raise ValueError(f"payloads {tuple(sp_part.shape)} beside keys "
+                         f"{tuple(s_part.shape)}")
+    if s_part.device.type == "cpu":
+        return materialize_pairs_plain(cnt_tbl, pay_tbl, s_part, sp_part, lo,
+                                       shift, part_bits, slice_rows)
+    _build.check_cuda(cnt_tbl, pay_tbl, s_part, sp_part)
+    if s_part.numel() % 4:
+        raise ValueError(f"{s_part.numel()} keys: the kernel takes whole "
+                         "16-byte groups")
+    out_r, out_s, out_k = (torch.empty_like(s_part) for _ in range(3))
+    count = torch.empty((), dtype=torch.int64, device=s_part.device)
+    _build.launch("materialize", "hbrj_materialize", s_part.device,
+                  cnt_tbl.data_ptr(), pay_tbl.data_ptr(), s_part.data_ptr(),
+                  sp_part.data_ptr(), s_part.numel(), out_r.data_ptr(),
+                  out_s.data_ptr(), out_k.data_ptr(), count.data_ptr(), lo,
+                  shift, 1 << part_bits, slice_rows * LANES)
+    return out_r, out_s, out_k, count
 
 
 def plan_tables_build(r_key, r_pay, lo: int, hi: int, part_bits: int,
@@ -267,8 +334,31 @@ class PrhoPlan:
                 "probe": lambda: self.probe(m["tables"], m["s_part"])}
 
 
+@dataclasses.dataclass
+class MaterializePlan(PrhoPlan):
+    """PrhoPlan whose last phase emits the matched pairs (unique R).
+
+    full() runs R partition, table build, S partition (keys and payloads)
+    and materialize_pairs, and returns (out_r, out_s, out_k, count) without
+    synchronising; the timed join thus builds its tables, unlike the JAX
+    package's timed function, which reused the tables built at plan time.
+    """
+
+    def probe(self, tables, s_part):
+        g = self.geom
+        return materialize_pairs(tables[0], tables[1], s_part[0], s_part[1],
+                                 self.lo, g.shift, g.part_bits,
+                                 self.slice_rows)
+
+    def phase_fns(self) -> dict:
+        fns = super().phase_fns()
+        fns["materialize"] = fns.pop("probe")
+        return fns
+
+
 def _plan(r_key, r_pay, s_key, s_pay, lo: int, hi: int, device, chunk_rows,
-          num_radix_bits) -> Optional[PrhoPlan]:
+          num_radix_bits, plan_cls=PrhoPlan,
+          max_count: int = MULTIPLICITY_GUARD - 1):
     if s_pay is not None and s_pay.shape[0] != s_key.shape[0]:
         raise ValueError(f"{s_pay.shape[0]} payloads for {s_key.shape[0]} "
                          "keys")
@@ -278,16 +368,16 @@ def _plan(r_key, r_pay, s_key, s_pay, lo: int, hi: int, device, chunk_rows,
     rk_in, rp_in, geom = plan_tables_build(r_key, r_pay, lo, hi, part_bits,
                                            shift, chunk_rows, device)
     chunk = chunk_rows * LANES
-    plan = PrhoPlan(
+    plan = plan_cls(
         rk_in=rk_in, rp_in=rp_in,
         sk_in=radix_ops._chunk_pad(s_key, chunk, device),
         sp_in=None if s_pay is None
         else radix_ops._chunk_pad(s_pay, chunk, device),
         lo=lo, hi=hi, geom=geom, slice_rows=slice_rows)
-    # the JAX package's exactness guard (one plan-time sync); the tables
-    # built here stay in the plan for phase timing
+    # the JAX package's guard on the largest multiplicity (one plan-time
+    # sync); the tables built here stay in the plan for phase timing
     cnt_tbl = plan._intermediates()["tables"][0]
-    if int(cnt_tbl.max()) >= MULTIPLICITY_GUARD:
+    if int(cnt_tbl.max()) > max_count:
         return None
     return plan
 
@@ -317,3 +407,13 @@ def plan_prh_join(r_key, r_pay, s_key, lo: int, hi: int, device="cuda",
     """
     return _plan(r_key, r_pay, s_key, None, lo, hi, device, chunk_rows,
                  num_radix_bits)
+
+
+def plan_materialize_join(r_key, r_pay, s_key, s_pay, lo: int, hi: int,
+                          device="cuda", chunk_rows: int = CHUNK_ROWS,
+                          num_radix_bits: Optional[int] = None):
+    """Materialization plan for a unique R: a MaterializePlan, or None when
+    a key repeats in R (pairs would need per-key R lists; the registry's
+    portable tier serves that), as the JAX plan_materialize_join."""
+    return _plan(r_key, r_pay, s_key, s_pay, lo, hi, device, chunk_rows,
+                 num_radix_bits, plan_cls=MaterializePlan, max_count=1)

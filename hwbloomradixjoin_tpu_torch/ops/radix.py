@@ -18,6 +18,11 @@ reference the kernels are checked against on the card.
 
 A geometry partitions by key range, or, with ``hash_seed`` set, by the top
 bits of the bloom filter's block index (hash mode, ``ops/bloom_pallas.py``).
+
+``radix_join_count`` is the general radix count join of the JAX package's
+``radix_join_count_pallas``: both sides partitioned by the low 12 bits, then
+``gathered_probe_count`` (``csrc/gathered_probe.cu``) counts each bucket's
+matches with multiplicity.
 """
 
 from __future__ import annotations
@@ -39,6 +44,11 @@ LANES = 128
 # (full-int32-span key ranges, count spans past 2^27) wait for the wide
 # single-pass partition (ROADMAP slice 12)
 MAX_PART_BITS = 13
+# The gathered probe stages one bucket's R keys in shared memory: the JAX
+# package's default R_SEGS * SEG_ROWS * 128 = 40,960 keys, so every input the
+# JAX probe takes fits (160 KiB of a block's 227 KiB, beside the kernel's own
+# tile arrays and cub scratch, 16.5 KiB).
+R_CAP = 40 * 8 * LANES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,6 +252,95 @@ def partition_pass_kv(keys_flat: torch.Tensor, pays_flat: torch.Tensor,
         return partition_pass_kv_plain(keys_flat, pays_flat, geom)
     _build.check_cuda(keys_flat, pays_flat)
     return _partition_launch(keys_flat, pays_flat, geom)
+
+
+def _valid_keys(part: torch.Tensor, starts: torch.Tensor, geom: RadixGeom):
+    """The keys of a partitioned stream outside the pad category."""
+    nchunks = _nchunks(part.reshape(-1), geom.chunk_rows)
+    keys = part.reshape(nchunks, -1)
+    end = starts.reshape(nchunks, -1)[:, 1 << geom.part_bits]
+    return keys[torch.arange(keys.shape[1], device=keys.device) < end[:, None]]
+
+
+def gathered_probe_count_plain(r_part, r_starts, s_part, s_starts,
+                               geom: RadixGeom):
+    """Plain twin of gathered_probe_count: int64 (count, overflow).
+
+    A sort of R's keys and two searchsorteds of S's give each S key its
+    key's multiplicity in R; S keys of a bucket whose R holds more than
+    R_CAP keys are not counted, and such a bucket sets overflow (1).
+    """
+    cat = geom_cat_fn(geom)
+    rk, sk = _valid_keys(r_part, r_starts, geom), _valid_keys(s_part,
+                                                              s_starts, geom)
+    r_sorted = torch.sort(rk).values
+    mult = torch.searchsorted(r_sorted, sk, right=True) \
+        - torch.searchsorted(r_sorted, sk)
+    r_per_bucket = torch.bincount(cat(rk), minlength=1 << geom.part_bits)
+    probed = r_per_bucket[cat(sk)] <= R_CAP
+    return torch.stack([(mult * probed).sum(),
+                        (r_per_bucket > R_CAP).any().long()])
+
+
+def _check_probe_geom(geom: RadixGeom) -> None:
+    if geom.hash_seed is not None or not geom.pad_cat:
+        raise ValueError("the gathered probe takes range-mode partitions "
+                         "with the pad category")
+
+
+def gathered_probe_count(r_part: torch.Tensor, r_starts: torch.Tensor,
+                         s_part: torch.Tensor, s_starts: torch.Tensor,
+                         geom: RadixGeom) -> torch.Tensor:
+    """Count the key matches of R and S partitioned by partition_pass(geom).
+
+    Returns a (2,) int64 tensor on their device: the number of matching
+    (r, s) pairs, and 1 when a bucket's R holds more than R_CAP keys (that
+    bucket is then not counted; the caller must use another path), else 0.
+    Replaces the Pallas gathered_probe_count (radix.py:657); the kernel reads
+    each bucket's runs through the starts tables, so the TPU's gather
+    descriptors (build_gather_descriptors, group_descriptors) have no
+    counterpart.
+    """
+    _check_probe_geom(geom)
+    if s_part.device.type == "cpu":
+        return gathered_probe_count_plain(r_part, r_starts, s_part, s_starts,
+                                          geom)
+    _build.check_cuda(r_part, r_starts, s_part, s_starts)
+    chunk = geom.chunk_rows * LANES
+    out = torch.empty(2, dtype=torch.int64, device=s_part.device)
+    _build.launch("gathered_probe", "hbrj_gathered_probe", s_part.device,
+                  r_part.data_ptr(), r_starts.data_ptr(),
+                  _nchunks(r_part.reshape(-1), geom.chunk_rows),
+                  s_part.data_ptr(), s_starts.data_ptr(),
+                  _nchunks(s_part.reshape(-1), geom.chunk_rows), chunk,
+                  geom.cat_rows * LANES, geom.part_bits, R_CAP,
+                  out.data_ptr())
+    return out
+
+
+def radix_join_count(r_keys, s_keys, geom: Optional[RadixGeom] = None,
+                     device="cuda"):
+    """General radix join, count only: returns (count, overflow).
+
+    Both sides are partitioned by kernel 1 with geom (default: the JAX
+    package's DEFAULT_GEOM, the reference's low-bit radix over 12 bits),
+    then each bucket is probed by gathered_probe_count.  overflow True
+    means a bucket's R exceeded R_CAP keys (heavy key skew): the count is
+    then 0 and the caller must use a portable path, as with the JAX
+    package's radix_join_count_pallas.  Inputs: numpy arrays or tensors;
+    device: where the join runs, the card unless the caller asks for the
+    CPU.
+    """
+    geom = geom or RadixGeom()
+    _check_probe_geom(geom)
+    chunk = geom.chunk_rows * LANES
+    r2, r_starts = partition_pass(_chunk_pad(r_keys, chunk, device), geom)
+    s2, s_starts = partition_pass(_chunk_pad(s_keys, chunk, device), geom)
+    count, overflow = gathered_probe_count(r2, r_starts, s2, s_starts,
+                                           geom).tolist()
+    if overflow:
+        return 0, True
+    return count, False
 
 
 def _compact_cap(chunk_rows: int, cap_rows: Optional[int]) -> int:

@@ -1,9 +1,13 @@
-"""Sort-based join count (the ``sortscan`` tier), plain PyTorch.
+"""Sort-based joins (the ``sortscan`` and ``materialize`` tiers), plain
+PyTorch.
 
-Counterpart of ``hwbloomradixjoin_tpu/ops/xla_join.py:32-77``: R and S rows
-sort together by (key, side), R first within a key, so each S row's match
-count is the number of R rows in its key segment.  Duplicate keys are allowed
-on both sides.  Checksums are mod 2^32, as in the JAX package.
+Counterpart of ``hwbloomradixjoin_tpu/ops/xla_join.py:32-118, 282-328``: R
+and S rows sort together by (key, side), R first within a key, so each S
+row's match count is the number of R rows in its key segment.  Duplicate
+keys are allowed on both sides.  Checksums are mod 2^32, as in the JAX
+package.  The materializing forms emit the matched (R payload, S payload,
+key) rows; on the card they are the independent oracle of the
+materialization kernel.
 """
 
 from __future__ import annotations
@@ -50,3 +54,68 @@ def scan_sorted_count(key, tag, pay):
     sum_spay = ((torch.where(s_rows, pay.long() & MASK32, 0)
                  * (r_in_seg & MASK32)) & MASK32).sum() & MASK32
     return count, sum_rpay, sum_spay
+
+
+def _segments(key, tag):
+    """(is_r, seg_start, inclusive R prefix) of rows sorted by (key, tag)."""
+    n = key.shape[0]
+    boundary = torch.ones(n, dtype=torch.bool, device=key.device)
+    boundary[1:] = key[1:] != key[:-1]
+    idx = torch.arange(n, device=key.device)
+    seg_start = torch.cummax(torch.where(boundary, idx, -1), dim=0).values
+    is_r = tag == 0
+    return is_r, seg_start, torch.cumsum(is_r.long(), 0)
+
+
+def sort_scan_materialize(r_key, r_pay, s_key, s_pay):
+    """Materialized join for a unique-key build side.
+
+    Returns (count, r_payload_out, s_payload_out, key_out): |S|-row int32
+    columns whose first count rows hold the matched pairs in (key, S order)
+    order, the rest 0, 0 and PAD, array for array the JAX package's
+    sort_scan_materialize (xla_join.py:79).
+    """
+    ns = s_key.shape[0]
+    key, tag, pay = sort_rows(r_key, r_pay, s_key, s_pay)
+    is_r, seg_start, r_pref = _segments(key, tag)
+    # the R row of a key sorts first; an S row matches when its segment's
+    # exclusive R count is exactly 1
+    r_in_seg = (r_pref - is_r.long()) - (r_pref - is_r.long())[seg_start]
+    matched = (~is_r) & (r_in_seg == 1)
+    rows = matched.nonzero().squeeze(1)
+    count = rows.numel()
+    out_r = torch.zeros(ns, dtype=torch.int32, device=key.device)
+    out_s = torch.zeros_like(out_r)
+    out_k = torch.full_like(out_r, -2**31)
+    out_r[:count] = pay[seg_start[rows]]
+    out_s[:count] = pay[rows]
+    out_k[:count] = key[rows]
+    return torch.tensor(count, device=key.device), out_r, out_s, out_k
+
+
+def sort_scan_materialize_multi(r_key, r_pay, s_key, s_pay, out_cap: int):
+    """Materialized join for a non-unique build side: all (R, S) pairs.
+
+    Each S row whose key appears m times in R emits m pairs.  out_cap is
+    the output capacity (callers pre-count with sort_scan_count); rows past
+    the total carry PAD in all three columns.  Returns (count,
+    r_payload_out, s_payload_out, key_out), array for array the JAX
+    package's sort_scan_materialize_multi (xla_join.py:282).
+    """
+    key, tag, pay = sort_rows(r_key, r_pay, s_key, s_pay)
+    n = key.shape[0]
+    is_r, seg_start, r_pref = _segments(key, tag)
+    # R rows sort before every S row of their key, so at an S row r_pref
+    # already counts the segment's whole R run
+    before = torch.where(seg_start > 0,
+                         r_pref[torch.clamp(seg_start - 1, min=0)], 0)
+    m = torch.where(~is_r, r_pref - before, 0)
+    csum = torch.cumsum(m, 0)
+    total = csum[-1]
+    j = torch.arange(out_cap, device=key.device)
+    i = torch.clamp(torch.searchsorted(csum, j, right=True), max=n - 1)
+    src_r = torch.clamp(seg_start[i] + j - (csum - m)[i], max=n - 1)
+    valid = j < total
+    pad = torch.tensor(-2**31, dtype=torch.int32, device=key.device)
+    return (total, torch.where(valid, pay[src_r], pad),
+            torch.where(valid, pay[i], pad), torch.where(valid, key[i], pad))

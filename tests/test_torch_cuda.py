@@ -8,9 +8,11 @@ and deep bitmap slices, payloads moved with the keys, count tables from
 empty chunks and from every key in one slot, probes with and without S
 payloads, the hash-mode partition, pass 2 in both modes (all PAD, one chunk,
 empty buckets), the bloom probe (k = 1..8, B = 32 to 2^17, no survivors),
-the prune past the TPU's limits (2,049 chunks, a hot key) and the launch
-counters.  This file imports no jax, so on a
-machine without it run:
+the prune past the TPU's limits (2,049 chunks, a hot key), the dense count
+(odd lengths, wrapping sums, all PAD), materialization (payloads at -2^31,
+PAD, empty buckets), the gathered probe (duplicates, empty buckets, a bucket
+at and one past its capacity), the default config's dense tier and the
+launch counters.  This file imports no jax, so on a machine without it run:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -24,6 +26,7 @@ from hwbloomradixjoin_tpu_torch.kernels import _build
 from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
 from hwbloomradixjoin_tpu_torch.ops import bloom
 from hwbloomradixjoin_tpu_torch.ops import bloom_pallas as BP
+from hwbloomradixjoin_tpu_torch.ops import dense_join as D
 from hwbloomradixjoin_tpu_torch.ops import multipass as M
 from hwbloomradixjoin_tpu_torch.ops import prho_join as P
 from hwbloomradixjoin_tpu_torch.ops import radix as X
@@ -140,7 +143,9 @@ def test_launch_counts_and_input_checks(cuda):
                                "partition_kv": 0, "table_build": 0,
                                "table_probe": 0, "partition_hash": 0,
                                "pass2_partition": 0,
-                               "pass2_partition_hash": 0, "bloom_probe": 0}
+                               "pass2_partition_hash": 0, "bloom_probe": 0,
+                               "dense_count": 0, "materialize": 0,
+                               "gathered_probe": 0}
     with pytest.raises(ValueError):
         X.partition_pass(keys.to(cuda).long(), geom)
     with pytest.raises(ValueError):
@@ -426,3 +431,199 @@ def test_bloom_prune_past_the_tpu_limits_on_card(cuda, case):
     assert plan.s_after == int(n_plain) == out.numel()
     assert torch.equal(torch.sort(out).values, torch.sort(s[mask]).values)
 
+
+
+@pytest.mark.parametrize("n", [1, 5, 127, 4096, 1_000_003])
+def test_dense_kernel_matches_twin(cuda, n):
+    """Odd lengths (the scalar tail), payloads at +-2^31 so the sum wraps,
+    keys at lo - 1, hi + 1, negative and PAD."""
+    rng = np.random.default_rng(n)
+    keys = _keys(rng, n, 7, 90_000)
+    keys[::11] = 6
+    keys[::13] = 90_001
+    pays = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                            .astype(np.int32))
+    pays[::3] = 2**31 - 1
+    k, p = keys.to(cuda), pays.to(cuda)
+    got = D.dense_count_join(k, p, 7, 90_000)
+    want = D.dense_count_join_plain(k, p, 7, 90_000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.tolist() == D.dense_count_join_plain(keys, pays, 7,
+                                                    90_000).tolist()
+
+
+def test_dense_kernel_all_pad_and_empty(cuda):
+    pads = torch.full((4099,), PAD, dtype=torch.int32, device=cuda)
+    assert D.dense_count_join(pads, pads, 1, 100).tolist() == [0, 0]
+    empty = torch.empty(0, dtype=torch.int32, device=cuda)
+    assert D.dense_count_join(empty, empty, 1, 100).tolist() == [0, 0]
+
+
+def _materialize_case(cuda, rk, rp, sk, sp, lo, hi, bits=None):
+    """Tables from R, images from S on the card; equal to the twins'."""
+    pb, shift, slr = P.plan_geometry_counts(lo, hi, bits)
+    geom = X.RadixGeom(chunk_rows=8, part_bits=pb, lo=lo, hi=hi, shift=shift)
+    r_part = X.partition_pass_kv(X._chunk_pad(rk, 1024, cuda),
+                                 X._chunk_pad(rp, 1024, cuda), geom)
+    tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr)
+    s_part = X.partition_pass_kv(X._chunk_pad(sk, 1024, cuda),
+                                 X._chunk_pad(sp, 1024, cuda), geom)
+    args = (*tables, s_part[0], s_part[1], lo, shift, pb, slr)
+    got = P.materialize_pairs(*args)
+    want = P.materialize_pairs_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("lo,hi,bits", [(1, 299, None), (1, 60000, 4),
+                                        (-(1 << 20), (1 << 20) - 1, 6),
+                                        (1, 16_000_000, None)])
+def test_materialize_kernel_matches_twin(cuda, lo, hi, bits):
+    rng = np.random.default_rng(abs(lo) % 991 + hi % 991)
+    span = hi - lo + 1
+    rk = (rng.choice(span, min(span, 20_000), replace=False) + lo) \
+        .astype(np.int32)
+    rp = rng.integers(-2**31, 2**31, len(rk), dtype=np.int64).astype(np.int32)
+    rp[::5] = PAD                        # a payload equal to PAD is a pair
+    sk = np.concatenate([rng.choice(rk, 7000),
+                         _keys(rng, 9001, lo, hi).numpy()])
+    sp = rng.integers(-2**31, 2**31, len(sk), dtype=np.int64).astype(np.int32)
+    out_r, out_s, out_k, n = _materialize_case(cuda, rk, rp, sk, sp, lo, hi,
+                                               bits)
+    keep = out_k != PAD
+    rmap = dict(zip(rk.tolist(), rp.tolist()))
+    want = sorted((rmap[k], p) for k, p in zip(sk.tolist(), sp.tolist())
+                  if k in rmap)
+    got = sorted(zip(out_r[keep].tolist(), out_s[keep].tolist()))
+    assert int(n) == len(want) and got == want
+    assert (out_r[keep] == PAD).any()
+
+
+def test_materialize_kernel_all_pad_and_empty_buckets(cuda):
+    pad = np.full(3 * 1024, PAD, np.int32)
+    out = _materialize_case(cuda, pad, pad, pad, pad, 1, 5000, 3)
+    assert int(out[3]) == 0 and all((o == PAD).all() for o in out[:3])
+    rk = np.arange(1, 100, dtype=np.int32)           # bucket 0 of 8 only
+    sk = np.arange(1, 5000, dtype=np.int32)
+    out = _materialize_case(cuda, rk, rk * 3, sk, -sk, 1, 5000, 3)
+    assert int(out[3]) == 99
+
+
+def _gathered_case(cuda, rk, sk, geom):
+    parts = []
+    for keys in (rk, sk):
+        parts += X.partition_pass(X._chunk_pad(keys, geom.chunk_rows * 128,
+                                               cuda), geom)
+    got = X.gathered_probe_count(*parts, geom)
+    want = X.gathered_probe_count_plain(*parts, geom)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    return got.tolist()
+
+
+@pytest.mark.parametrize("chunk_rows,part_bits", [(8, 0), (40, 5), (1024, 12),
+                                                  (64, 13)])
+def test_gathered_probe_kernel_matches_twin(cuda, chunk_rows, part_bits):
+    """Duplicates on both sides, negative keys, PAD; the JAX default
+    geometry (1024 rows, 12 bits) among others."""
+    from hwbloomradixjoin_tpu_torch.data import native
+    rng = np.random.default_rng(chunk_rows + part_bits)
+    rk = rng.integers(-40_000, 40_000, 30_001).astype(np.int32)
+    sk = np.concatenate([rng.choice(rk, 20_000),
+                         _keys(rng, 70_001, -50_000, 50_000).numpy()])
+    geom = X.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits)
+    count, ovf = _gathered_case(cuda, rk, sk, geom)
+    assert ovf == 0
+    assert count == native.ref_join(rk, np.zeros_like(rk), sk,
+                                    np.zeros_like(sk))[0]
+
+
+def test_gathered_probe_kernel_all_pad_and_empty_buckets(cuda):
+    geom = X.RadixGeom(chunk_rows=8, part_bits=4)
+    pads = np.full(3000, PAD, np.int32)
+    assert _gathered_case(cuda, pads, pads, geom) == [0, 0]
+    rk = np.arange(0, 64_000, 16, dtype=np.int32)     # bucket 0 only
+    sk = np.arange(0, 70_000, dtype=np.int32)
+    assert _gathered_case(cuda, rk, sk, geom) == [4000, 0]
+    assert _gathered_case(cuda, rk, pads, geom) == [0, 0]
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_gathered_probe_kernel_at_the_capacity(cuda, extra):
+    """Bucket 0 holds exactly R_CAP R keys (probed) or one more (overflow:
+    not probed, the flag set); the other buckets are counted either way."""
+    geom = X.RadixGeom()
+    hot = (np.arange(X.R_CAP + extra, dtype=np.int64) % 20_000 * 4096) \
+        .astype(np.int32)
+    cold = np.arange(1, 300_000, dtype=np.int32)
+    cold = cold[cold % 4096 != 0]
+    rk = np.concatenate([hot, cold])
+    sk = np.concatenate([hot[:1000], cold[::2]])
+    count, ovf = _gathered_case(cuda, rk, sk, geom)
+    mult = np.bincount(hot % (20_000 * 4096) // 4096)
+    hot_pairs = int(mult[hot[:1000] // 4096].sum())
+    assert ovf == extra
+    assert count == len(cold[::2]) + (0 if extra else hot_pairs)
+    assert X.radix_join_count(rk, sk, device=cuda) == \
+        ((0, True) if extra else (count, False))
+
+
+def test_default_config_takes_the_dense_tier(cuda):
+    """run_join("PRO") with EngineConfig() over the generator's dense PK
+    takes the dense tier on the card (it raised NotImplementedError before
+    the tier was ported): the exact count and the ht tier's S checksum."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.models import run_join
+    from hwbloomradixjoin_tpu_torch.types import Relation
+    p = G.WorkloadParams(r_size=200_000, s_size=3_000_000, nthreads=4,
+                         selectivity=0.3)
+    rk, rp, sk, sp = G.build_workload(p)
+    R = Relation.from_numpy(rk, rp, device=cuda, stats=G.r_key_stats(p))
+    S = Relation.from_numpy(sk, sp, device=cuda)
+    _build.reset_launches()
+    res, st, sums = run_join("PRO", R, S)
+    assert _build.LAUNCHES["dense_count"] > 0
+    assert st.tier == "dense"
+    assert res.count() == G.expected_uniform_match_count(3_000_000, 0.3)
+    _, ref_st, ref_sums = run_join("PRO", R, S, EngineConfig(
+        radix=RadixConfig(use_kernels=False), allow_dense=False))
+    assert ref_st.tier == "ht" and sums == (0, ref_sums[1])
+
+
+def test_materialize_on_card_keeps_pad_payloads(cuda):
+    """run_join(materialize=True) on the card: R payloads equal to -2^31
+    stay pairs (compaction masks on the key image), the pairs equal the
+    portable tier's, and the kernels launched."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
+    from hwbloomradixjoin_tpu_torch.models import run_join
+    from hwbloomradixjoin_tpu_torch.types import KeyStats, Relation
+    rng = np.random.default_rng(77)
+    rk = rng.permutation(np.arange(1, 50_001)).astype(np.int32)
+    rp = np.full(len(rk), PAD, np.int32)
+    rp[::2] = np.arange(len(rk[::2]), dtype=np.int32)
+    sk = rng.integers(-10, 120_000, 400_000).astype(np.int32)
+    sp = np.arange(len(sk), dtype=np.int32)
+    R = Relation.from_numpy(rk, rp, device=cuda,
+                            stats=KeyStats(1, 50_000, is_unique=True))
+    S = Relation.from_numpy(sk, sp, device=cuda)
+    _build.reset_launches()
+    res, st, _ = run_join("PRO", R, S, EngineConfig(materialize=True))
+    ran = dict(_build.LAUNCHES)
+    assert st.tier == "cuda_materialize"
+    assert all(ran[k] > 0 for k in ("partition_kv", "table_build",
+                                    "materialize"))
+    ref, ref_st, _ = run_join("PRO", R, S, EngineConfig(
+        radix=RadixConfig(use_kernels=False), materialize=True))
+    assert ref_st.tier == "materialize"
+    want = int(((sk >= 1) & (sk <= 50_000)).sum())
+    assert res.count() == ref.count() == want == res.r_payload.numel()
+    assert int((res.r_payload == PAD).sum()) > want // 3
+
+    def pairs(r):
+        return torch.sort((r.s_payload.long() << 32)
+                          | (r.r_payload.long() & 0xFFFFFFFF)).values
+    assert torch.equal(pairs(res), pairs(ref))

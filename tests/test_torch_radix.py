@@ -146,3 +146,90 @@ def test_partition_rejects_wide_fanout_and_bad_shapes():
         TR.compact_pass(keys, 0, 10, 8, cap_rows=12)
     with pytest.raises(ValueError, match="hash mode"):   # 12 of 0 bits
         TR.RadixGeom(hash_seed=3)
+
+
+# The three inputs of tests/test_radix.py (JAX geometry and R capacity in
+# segments, r_segs), the one-bucket case grown past the port's capacity of
+# R_CAP keys so that both sides overflow.
+_GATHERED_CASES = {
+    "unique": (7, dict(chunk_rows=32, part_bits=4, s_segs=8, r_segs=4)),
+    "duplicates": (8, dict(chunk_rows=32, part_bits=4, s_segs=8, r_segs=8)),
+    "one_bucket": (None, dict(chunk_rows=32, part_bits=4, s_segs=8,
+                              r_segs=2)),
+}
+
+
+def _gathered_input(case):
+    seed, _ = _GATHERED_CASES[case]
+    if case == "one_bucket":           # all R keys in bucket 0
+        return (np.arange(TR.R_CAP + 1, dtype=np.int32) * 16,
+                np.arange(0, 64000, 16, dtype=np.int32))
+    rng = np.random.default_rng(seed)
+    if case == "unique":
+        return (rng.permutation(np.arange(1, 3001)).astype(np.int32),
+                rng.integers(1, 9000, 12000).astype(np.int32))
+    return (rng.integers(0, 500, 2000).astype(np.int32),
+            rng.integers(0, 700, 8000).astype(np.int32))
+
+
+@pytest.mark.parametrize("case", list(_GATHERED_CASES))
+def test_radix_join_count_matches_jax_interpret(case):
+    """radix_join_count (its twins here) against the Pallas
+    radix_join_count_pallas in interpret mode, at the JAX test's geometry:
+    the same count, exactly, and the same overflow."""
+    from hwbloomradixjoin_tpu.data import native
+
+    rk, sk = _gathered_input(case)
+    _, kw = _GATHERED_CASES[case]
+    jgeom = JR.RadixGeom(**kw)
+    want, jovf = JR.radix_join_count_pallas(rk, sk, interpret=True,
+                                            geom=jgeom)
+    got, ovf = TR.radix_join_count(
+        rk, sk, TR.RadixGeom(chunk_rows=kw["chunk_rows"],
+                             part_bits=kw["part_bits"]), device="cpu")
+    assert ovf == jovf == (case == "one_bucket")
+    assert got == int(want)
+    if not ovf:
+        assert got == native.ref_join(rk, np.zeros_like(rk), sk,
+                                       np.zeros_like(sk))[0]
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_gathered_probe_at_and_past_the_capacity(extra):
+    """A bucket of exactly R_CAP R keys is probed; one more key overflows,
+    and only that bucket's S keys go uncounted in the raw count."""
+    geom = TR.RadixGeom(chunk_rows=8, part_bits=3)
+    hot = (np.arange(TR.R_CAP + extra, dtype=np.int32) % 20_480) * 8  # bucket 0
+    cold = np.arange(1, 2000, dtype=np.int32)
+    cold = cold[cold % 8 != 0]
+    rk = np.concatenate([hot, cold])
+    sk = np.concatenate([hot[:500], cold[::3], np.full(50, PAD, np.int32)])
+    parts = []
+    for keys in (rk, sk):
+        parts += TR.partition_pass(TR._chunk_pad(keys, 1024, "cpu"), geom)
+    count, ovf = TR.gathered_probe_count(*parts, geom).tolist()
+    n_cold = len(cold[::3])
+    assert ovf == extra
+    assert count == n_cold + (0 if extra else 500 * 2)
+    assert TR.radix_join_count(rk, sk, geom, "cpu") == \
+        ((0, True) if extra else (n_cold + 1000, False))
+
+
+def test_radix_join_count_default_geometry():
+    """The default geometry (12 low bits, chunks of 1024 rows, R_CAP
+    40,960) over negative keys, repeats and PAD: ref_join's count.  A
+    hash-mode geometry is refused."""
+    from hwbloomradixjoin_tpu.data import native
+
+    rng = np.random.default_rng(17)
+    rk = rng.integers(-50_000, 50_000, 30_000).astype(np.int32)
+    sk = rng.integers(-60_000, 60_000, 200_000).astype(np.int32)
+    sk[::101] = PAD
+    assert TR.RadixGeom() == TR.RadixGeom(chunk_rows=JR.CHUNK_ROWS,
+                                          part_bits=JR.PART_BITS)
+    assert TR.R_CAP == JR.R_SEGS * JR.SEG_ROWS * 128
+    want = native.ref_join(rk, np.zeros_like(rk), sk, np.zeros_like(sk))[0]
+    assert TR.radix_join_count(rk, sk, device="cpu") == (want, False)
+    with pytest.raises(ValueError, match="range-mode"):
+        TR.radix_join_count(rk, sk, TR.RadixGeom(
+            hash_seed=3, hash_bits=12), device="cpu")

@@ -218,6 +218,10 @@ def test_fourteen_bit_count_span_raises_slice_2():
     ("PRHO", EngineConfig(materialize=True), {"stats": None}),
 ])
 def test_unported_tiers_raise(algo, cfg, kw):
+    """KEY_8B raises its ROADMAP slice; materialization, ported since,
+    runs on the kernel tier, with ref_join's count and pairs, for an R
+    declared unique and for one with no stats whose keys do not repeat (the
+    planner's table shows it, as in the JAX package)."""
     rk, rp, sk, sp = _workload(n_r=500, n_s=2000)
     stats = kw.get("stats", KeyStats(1, 500, is_unique=True))
     R = Relation.from_numpy(rk, rp, device="cpu", stats=stats,
@@ -225,8 +229,19 @@ def test_unported_tiers_raise(algo, cfg, kw):
     S = Relation.from_numpy(sk, sp, device="cpu",
                             key8b=kw.get("key8b", False))
     bloom = BloomArgs() if kw.get("bloom") else None
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-        run_join(algo, R, S, cfg, bloom)
+    if not cfg.materialize:
+        with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
+            run_join(algo, R, S, cfg, bloom)
+        return
+    res, st, sums = run_join(algo, R, S, cfg, bloom)
+    assert st.tier == "cuda_materialize"
+    rmap = dict(zip(rk.tolist(), rp.tolist()))
+    want = sorted((rmap[k], p) for k, p in zip(sk.tolist(), sp.tolist())
+                  if k in rmap)
+    assert res.count() == len(want) == native.ref_join(rk, rp, sk, sp)[0]
+    assert sorted(zip(res.r_payload.tolist(), res.s_payload.tolist())) \
+        == want
+    assert set(registry.UNPORTED_TIERS) == {"key8b", "materialize8b"}
 
 
 def test_dense_gate_needs_a_cuda_tensor():
