@@ -55,7 +55,12 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    the card;
 4i. radix_join_count (the general radix count join: 12 low bits, the
    gathered probe) over 4's q = 1 relations: 128,000,000, no overflow;
-   every run of 4-4i has the launch counts reset just before and read just
+4j. workload B's relations (4b's) under PRHO with
+   RadixConfig(num_radix_bits=b) for b = 14..17, past the port's former
+   13-bit single-pass limit: tier cuda_prho, 4b's count and checksums; then
+   one line of the partition's ms and ns a key, keys only and with
+   payloads, at 6 to 17 bits over workload B's S;
+   every run of 4-4j has the launch counts reset just before and read just
    after; every kernel of its path must have launched;
 5. kernel and twin times at the main paths' full shapes (the bloom kernels
    over 4d's and 4e's S, pass 2 in hash mode at the flagship's 10 + 3 bits,
@@ -84,6 +89,8 @@ NU_R_SIZE = 16_000_000        # non-unique build side, 16M ⋈ 128M
 FLAG_R_SIZE = 128_000_000     # the bloom flagship: 128M ⋈ 1.024B
 FLAG_S_SIZE = 1_024_000_000
 REF_SURVIVOR_PCT = 12.14      # its S-tuples after filter (BASELINE.md:43)
+WIDE_BITS = (14, 15, 16, 17)   # 4j: workload B past the former 13-bit limit
+PART_WIDTHS = (6, 7, 8, 9, 10, 12, 13, 14, 17)   # the partition's cost a key
 PAD_KEY = -2**31
 SRC = "hwbloomradixjoin_tpu_torch/csrc/"
 KERNELS = {   # wrapper name -> (route, source, TPU kernel it replaces)
@@ -126,8 +133,8 @@ KERNELS = {   # wrapper name -> (route, source, TPU kernel it replaces)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 # A crc32c is 4 table lookups and 12 shifts, masks and xors; the hash
-# partition and hash-mode pass 2 take one in their histogram and one in
-# their scatter; the bloom probe one crc32c, one crapwow (2 products, 2 high
+# partition needs one a key (its kernel computes it once), hash-mode pass 2
+# takes one in its histogram and one in its scatter; the bloom probe one crc32c, one crapwow (2 products, 2 high
 # products, 6 more) and 8 operations a probe position at k = 1.  The
 # gathered probe's function, a per-bucket count of equal keys, needs no more
 # than a shared-memory hash insert of each R key and a hash probe of each S
@@ -135,7 +142,7 @@ INT32_OPS_PER_S = 67e12 / 4
 # whatever the kernel's own sort and binary searches spend.
 OPS_PER_ELEM = {"partition": 14, "compact": 3, "bitmap_build": 7,
                 "bitmap_probe": 9, "partition_kv": 14, "table_build": 8,
-                "table_probe": 10, "partition_hash": 14 + 2 * 16,
+                "table_probe": 10, "partition_hash": 14 + 16,
                 "pass2_partition": 20, "pass2_partition_hash": 20 + 2 * 16,
                 "bloom_probe": 16 + 10 + 8 + 4, "dense_count": 5,
                 "materialize": 13, "gathered_probe": 6}
@@ -278,7 +285,7 @@ def compare_table_kernels(dev, rng, err) -> None:
     r_part = X.partition_pass_kv(r_in, rp_in, geom)
     s_part = X.partition_pass_kv(s_in, sp_in, geom)
     tb_args = (r_part[0], r_part[1], lo, hi, pb, shift, slr)
-    tables = P.table_build(*tb_args)
+    tables = P.table_build(*tb_args, r_part[2])
     record(err, "table_build", tables, P.build_tables(*tb_args))
     sums = {}
     for with_sp in (True, False):
@@ -432,7 +439,8 @@ def compare_new_kernels(dev, rng, err) -> None:
     s_in, sp_in = torch.from_numpy(sk).to(dev), torch.from_numpy(sp).to(dev)
     r_part = X.partition_pass_kv(X._chunk_pad(rk, n, dev),
                                  X._chunk_pad(rp, n, dev), geom)
-    tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr)
+    tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr,
+                           r_part[2])
     s_part = X.partition_pass_kv(s_in, sp_in, geom)
     args = (*tables, s_part[0], s_part[1], lo, shift, pb, slr)
     out = P.materialize_pairs(*args)
@@ -807,8 +815,54 @@ def run_workload_b(dev, kind, launches):
             raise AssertionError(f"{algo}: count {res.count()} sums {sums} "
                                  f"!= {expect} {want}")
         add_launches(launches, ran)
-    return prho_join.plan_prho_join(R.key, R.payload, S.key, S.payload, 1,
+    plan = prho_join.plan_prho_join(R.key, R.payload, S.key, S.payload, 1,
                                     B_SIZE, device=dev)
+    return plan, R, S, ref_sums
+
+
+def run_wide_bits(R, S, ref_sums, kind, launches):
+    """Phase 4j: workload B under PRHO with RadixConfig(num_radix_bits=b)
+    for b = 14..17, figure 9's axis past the port's former 13-bit limit:
+    tier cuda_prho, the kernels launched, 4b's count and checksums."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+
+    expect = G.expected_uniform_match_count(B_SIZE, 1.0)
+    for bits in WIDE_BITS:
+        cfg = EngineConfig(radix=RadixConfig(num_radix_bits=bits),
+                           allow_dense=False)
+        res, st, sums, ran = drive("PRHO", R, S, cfg,
+                                   ("partition_kv", "table_build",
+                                    "table_probe"),
+                                   f"PRHO workload B num_radix_bits={bits}",
+                                   kind)
+        if st.tier != "cuda_prho" or res.count() != expect \
+                or tuple(sums) != tuple(ref_sums):
+            raise AssertionError(f"{bits} bits: tier {st.tier} count "
+                                 f"{res.count()} sums {sums}, want {expect} "
+                                 f"{ref_sums}")
+        add_launches(launches, ran)
+
+
+def partition_widths(dev, keys, pays) -> None:
+    """One line: the partition's ms and ns a key, keys only and with
+    payloads, at each width of PART_WIDTHS over the same keys (range mode
+    over workload B's [1, 128M])."""
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+    from hwbloomradixjoin_tpu_torch.ops import radix as X
+    from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
+
+    n = keys.numel()
+    cells = []
+    for bits in PART_WIDTHS:
+        geom = X.RadixGeom(chunk_rows=B.CHUNK_ROWS, part_bits=bits, lo=1,
+                           hi=B_SIZE, shift=27 - bits)
+        k_ms = time_usec(lambda: X.partition_pass(keys, geom), dev) / 1e3
+        kv_ms = time_usec(lambda: X.partition_pass_kv(keys, pays, geom),
+                          dev) / 1e3
+        cells.append(f"{bits} bits {k_ms:.4f} ms {k_ms * 1e6 / n:.5f} ns/key"
+                     f" (kv {kv_ms:.4f} ms {kv_ms * 1e6 / n:.5f} ns/key)")
+    print(f"partition widths over {n} keys: " + "; ".join(cells), flush=True)
 
 
 def run_nonunique(dev, kind, launches):
@@ -919,9 +973,9 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
             lambda: X.partition_pass_kv(b_plan.sk_in, b_plan.sp_in, gb),
             lambda: X.partition_pass_kv_plain(b_plan.sk_in, b_plan.sp_in, gb),
             nbytes(b_plan.sk_in, b_plan.sp_in), b_plan.sk_in.numel()),
-        "table_build": (lambda: P.table_build(*tb_args),
+        "table_build": (lambda: P.table_build(*tb_args, r_kv[2]),
                         lambda: P.build_tables(*tb_args),
-                        nbytes(*r_kv[:2]), r_kv[0].numel()),
+                        nbytes(*r_kv), r_kv[0].numel()),
         # the probe needs S's two columns and the two 4-byte slots of each
         # distinct in-range S key
         "table_probe": (lambda: P.probe_count_sums(*pr_args),
@@ -1026,8 +1080,13 @@ def main():
     pro = {q: run_pro_path(dev, q, kind, launches) for q in (1.0, 0.01)}
     pro_plans = {q: plan for q, (plan, _, _) in pro.items()}
     t0 = done("4 (PRO 16M x 128M)", t0)
-    b_plan = run_workload_b(dev, kind, launches)
+    b_plan, b_r, b_s, b_sums = run_workload_b(dev, kind, launches)
     t0 = done("4b (workload B)", t0)
+    run_wide_bits(b_r, b_s, b_sums, kind, launches)
+    partition_widths(dev, b_plan.sk_in, b_plan.sp_in)
+    del b_r, b_s
+    torch.cuda.empty_cache()
+    t0 = done("4j (PRHO at 14-17 bits, partition widths)", t0)
     run_nonunique(dev, kind, launches)
     t0 = done("4c (non-unique build)", t0)
     two_pass = run_two_pass(*pro[1.0][1:], kind, launches)

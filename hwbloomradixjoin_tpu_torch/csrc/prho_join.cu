@@ -11,17 +11,22 @@
 // of that layout: the key's multiplicity in R and the sum of its R payloads
 // mod 2^32.  Slice tails (sl_words > 2^shift) stay zero.
 //
-// Build: one thread per element of partitioned R (16-byte loads of keys and
-// payloads); a key in [lo, hi] adds 1 to its count slot and its payload to
-// its sum slot with atomicAdd.  The TPU had no scatter and deposited both
-// through the MXU, the payload in four 8-bit limbs so each f32 sum stayed
-// exact; atomics are exact for any multiplicity and wrap the sum mod 2^32
-// like the reference's unsigned checksums.  The tables are zeroed first.
-// Bound: one read of R's two columns and one write of the two tables, but
-// the atomics land on random 4-byte slots of tables far larger than L2 (1 GiB
-// at workload B), so each costs a sector read-modify-write; keeping a
-// bucket's two slices in shared memory, driven by the partition's starts,
-// is the known next step.
+// Build: the TPU kernel's order, per bucket.  One CTA owns bucket b and
+// keeps its two slices (count and payload sum, sl_words int32 each, at most
+// 2 x 64 KiB at slice_rows 128) in dynamic shared memory, zeroed there.  Its
+// warps walk b's run in every chunk of partitioned R, found through the
+// partition's starts table (run [starts[c][b], starts[c][b+1]) of chunk c;
+// a warp a run, or fewer lanes when runs are short), and deposit each key in [lo, hi] of bucket b with shared-memory atomicAdds
+// (exact for any multiplicity; the sum wraps mod 2^32 like the reference's
+// unsigned checksum).  Then it writes both slices, tails included, with
+// 16-byte stores: every table word is written exactly once, so there is no
+// memset and no global atomic.  The TPU had no scatter and deposited through
+// the MXU in four 8-bit payload limbs.  Bound: bytes, one read of R's two
+// columns and one write of the two tables.  One CTA a bucket, not two CTAs
+// each owning half a slice: halves would read each run twice, and at
+// 128 KiB a CTA one CTA an SM still keeps its 32 warps' loads in flight.
+// Global atomics instead would each be a sector read-modify-write in
+// tables 20 times the L2.
 //
 // Probe: streams partitioned S flat (and its payloads when given), 16 bytes
 // per thread and load.  A key counts when its ARITHMETIC bucket (int32-wrapped
@@ -56,30 +61,45 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarp = 32;
 
-__device__ __forceinline__ void deposit(int key, int pay, int* __restrict__ cnt,
-                                        unsigned* __restrict__ sums, int lo, int hi,
-                                        int shift, long long sl_words) {
-  if (key < lo || key > hi) return;
-  const unsigned norm = (unsigned)key - (unsigned)lo;
-  const long long slot =
-      (long long)(norm >> shift) * sl_words + (norm & ((1u << shift) - 1u));
-  atomicAdd(cnt + slot, 1);
-  atomicAdd(sums + slot, (unsigned)pay);
-}
-
-__global__ void table_build_kernel(const int4* __restrict__ rk,
-                                   const int4* __restrict__ rp, long long n4,
-                                   int* __restrict__ cnt, unsigned* __restrict__ sums,
-                                   int lo, int hi, int shift, long long sl_words) {
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * kThreads) {
-    const int4 k = rk[i];
-    const int4 p = rp[i];
-    deposit(k.x, p.x, cnt, sums, lo, hi, shift, sl_words);
-    deposit(k.y, p.y, cnt, sums, lo, hi, shift, sl_words);
-    deposit(k.z, p.z, cnt, sums, lo, hi, shift, sl_words);
-    deposit(k.w, p.w, cnt, sums, lo, hi, shift, sl_words);
+// One CTA a bucket: its two slices in shared memory, filled from the bucket's
+// run in every chunk, then written out whole.  A group of `group` lanes
+// walks one chunk's run (a warp for runs of dozens of keys, a few lanes for
+// runs of a few), so short runs of many chunks are read side by side.
+__global__ void table_build_kernel(const int* __restrict__ rk, const int* __restrict__ rp,
+                                   const int* __restrict__ starts, int nchunks,
+                                   int chunk_elems, int cat_words, int* __restrict__ cnt,
+                                   int* __restrict__ sums, int lo, int hi, int shift,
+                                   int sl_words, int group) {
+  extern __shared__ int4 slices[];
+  int* scnt = reinterpret_cast<int*>(slices);
+  unsigned* ssum = reinterpret_cast<unsigned*>(scnt + sl_words);
+  const int b = blockIdx.x;
+  const int q = sl_words / 4;          // int4 words a slice
+  for (int i = threadIdx.x; i < 2 * q; i += blockDim.x) slices[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  const int lane = threadIdx.x % group;
+  const int ngroups = blockDim.x / group;
+  const unsigned local = (1u << shift) - 1u;
+  for (int c = threadIdx.x / group; c < nchunks; c += ngroups) {
+    const int* st = starts + (long long)c * cat_words + b;
+    const int begin = __ldg(st), end = __ldg(st + 1);
+    const long long base = (long long)c * chunk_elems;
+    for (int i = begin + lane; i < end; i += group) {
+      const int key = __ldg(rk + base + i);
+      const unsigned norm = (unsigned)key - (unsigned)lo;
+      if (key < lo || key > hi || (int)(norm >> shift) != b) continue;
+      atomicAdd(scnt + (norm & local), 1);
+      atomicAdd(ssum + (norm & local), (unsigned)__ldg(rp + base + i));
+    }
+  }
+  __syncthreads();
+  int4* c4 = reinterpret_cast<int4*>(cnt + (long long)b * sl_words);
+  int4* s4 = reinterpret_cast<int4*>(sums + (long long)b * sl_words);
+  for (int i = threadIdx.x; i < q; i += blockDim.x) {
+    c4[i] = slices[i];
+    s4[i] = slices[q + i];
   }
 }
 
@@ -185,21 +205,25 @@ __global__ void materialize_kernel(const int* __restrict__ cnt,
 
 extern "C" {
 
-// rk, rp: n int32 keys and payloads (n % 4 == 0, 16-byte aligned);
-// cnt, sums: nslots int32 each, overwritten.
-int hbrj_table_build(const int* rk, const int* rp, long long n, int* cnt, int* sums,
-                     long long nslots, int lo, int hi, int shift, long long sl_words,
-                     cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(cnt, 0, (size_t)nslots * sizeof(int), stream);
+// rk, rp: R's keys and payloads partitioned by bucket (range mode over lo
+// and shift: nchunks chunks of chunk_elems); starts: the partition's starts,
+// cat_words >= F + 1 a chunk; cnt, sums: F * sl_words int32 each (16-byte
+// aligned, sl_words a multiple of 4 and >= 2^shift), overwritten.
+int hbrj_table_build(const int* rk, const int* rp, const int* starts, int nchunks,
+                     int chunk_elems, int cat_words, int* cnt, int* sums, int F, int lo,
+                     int hi, int shift, int sl_words, cudaStream_t stream) {
+  const int smem = 2 * sl_words * (int)sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      table_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return (int)err;
-  if ((err = cudaMemsetAsync(sums, 0, (size_t)nslots * sizeof(int), stream)))
-    return (int)err;
-  const long long n4 = n / 4;
-  if (n4) {
-    table_build_kernel<<<hbrj::grid_for(n4, kThreads), kThreads, 0, stream>>>(
-        reinterpret_cast<const int4*>(rk), reinterpret_cast<const int4*>(rp), n4, cnt,
-        reinterpret_cast<unsigned*>(sums), lo, hi, shift, sl_words);
-  }
+  const int threads = sl_words >= 8192 ? 1024 : 256;
+  // lanes a run: the power of two at or above the mean run, at most a warp
+  const int mean_run = chunk_elems / F;
+  int group = 1;
+  while (group < kWarp && group < mean_run) group *= 2;
+  table_build_kernel<<<(unsigned)F, threads, smem, stream>>>(
+      rk, rp, starts, nchunks, chunk_elems, cat_words, cnt, sums, lo, hi, shift, sl_words,
+      group);
   return (int)cudaGetLastError();
 }
 

@@ -51,14 +51,15 @@ _vp, _i, _u, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, \
     ctypes.c_longlong
 _SIGNATURES = {
     "hbrj_partition": [_vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _i,
-                       _i, _i, _i, _i, _i, _u, _i, _vp],
+                       _i, _i, _i, _i, _u, _i, _vp],
     "hbrj_pass2_partition": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
                              _ll, _i, _i, _u, _i, _i, _i, _i, _vp],
     "hbrj_bloom_probe": [_vp, _ll, _vp, _vp, _vp, _u, _u, _u, _i, _vp],
     "hbrj_compact": [_vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
     "hbrj_bitmap_build": [_vp, _ll, _vp, _ll, _i, _i, _i, _ll, _vp],
     "hbrj_bitmap_probe": [_vp, _vp, _ll, _vp, _i, _i, _i, _ll, _vp],
-    "hbrj_table_build": [_vp, _vp, _ll, _vp, _vp, _ll, _i, _i, _i, _ll, _vp],
+    "hbrj_table_build": [_vp, _vp, _vp, _i, _i, _i, _vp, _vp, _i, _i, _i, _i,
+                         _i, _vp],
     "hbrj_table_probe": [_vp, _vp, _vp, _vp, _ll, _vp, _i, _i, _i, _ll, _vp],
     "hbrj_materialize": [_vp, _vp, _vp, _vp, _ll, _vp, _vp, _vp, _vp, _i, _i,
                          _i, _ll, _vp],
@@ -66,6 +67,9 @@ _SIGNATURES = {
     "hbrj_gathered_probe": [_vp, _vp, _ll, _vp, _vp, _ll, _i, _i, _i, _i, _vp,
                             _vp],
 }
+
+# Host-side queries: name -> (argument types, result type); no stream.
+_QUERIES = {"hbrj_partition_scratch": ([_ll, _i, _i, _i, _i, _i], _ll)}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -144,6 +148,9 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(dll, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, (argtypes, restype) in _QUERIES.items():
+                fn = getattr(dll, name)
+                fn.argtypes, fn.restype = argtypes, restype
             dll.hbrj_error_string.argtypes = [ctypes.c_int]
             dll.hbrj_error_string.restype = ctypes.c_char_p
             _lib = dll

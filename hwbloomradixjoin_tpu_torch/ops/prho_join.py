@@ -20,7 +20,8 @@ plan the same layout.  ``table_build``, ``probe_count_sums`` and
 R, ``MaterializePlan``) launch the CUDA kernels of ``csrc/prho_join.cu`` for
 tensors on the card and run their plain twins (``build_tables``,
 ``probe_count_sums_plain``, ``materialize_pairs_plain``) for tensors on the
-CPU.  Like the bitmap kernels they stream their input flat, so the TPU
+CPU.  The build walks each bucket's runs through the R partition's
+``starts``; the probe and materialization stream S flat.  So the TPU
 kernels' DMA windows (``derive_descs``, ``_probe_geom``) have no counterpart.
 """
 
@@ -73,21 +74,26 @@ def build_tables(r_key: torch.Tensor, r_pay: torch.Tensor, lo: int, hi: int,
                  part_bits: int, shift: int, slice_rows: int):
     """Plain twin of the build: (count, paysum) tables, (F*slice_rows, 128).
 
-    Scatter-adds in int64 over R's keys in [lo, hi]; the payload sums wrap
-    mod 2^32 and both tables are returned as int32.  Slice tails stay zero.
+    Counts and sums R's keys in [lo, hi] per distinct slot in int64 (the
+    payload sums wrap mod 2^32), then writes them into zeroed int32 tables,
+    so the only table-sized buffers are the two results.  Slice tails stay
+    zero.
     """
     nslots = (1 << part_bits) * slice_rows * LANES
     key = r_key.reshape(-1).long()
     ok = (key >= lo) & (key <= hi)
     norm = key[ok] - lo
     slot = (norm >> shift) * (slice_rows * LANES) + (norm & ((1 << shift) - 1))
-    cnt = torch.zeros(nslots, dtype=torch.int64, device=r_key.device)
-    cnt.index_add_(0, slot, torch.ones_like(slot))
-    pay = torch.zeros(nslots, dtype=torch.int64, device=r_key.device)
-    pay.index_add_(0, slot, r_pay.reshape(-1)[ok].long() & MASK32)
+    used, inv = torch.unique(slot, return_inverse=True)
+    counts = torch.bincount(inv, minlength=used.numel())
+    sums = torch.zeros(used.numel(), dtype=torch.int64, device=r_key.device)
+    sums.index_add_(0, inv, r_pay.reshape(-1)[ok].long() & MASK32)
+    cnt = torch.zeros(nslots, dtype=torch.int32, device=r_key.device)
+    pay = torch.zeros_like(cnt)
+    cnt[used] = _to_int32(counts & MASK32)
+    pay[used] = _to_int32(sums & MASK32)
     rows = nslots // LANES
-    return (_to_int32(cnt & MASK32).view(rows, LANES),
-            _to_int32(pay & MASK32).view(rows, LANES))
+    return cnt.view(rows, LANES), pay.view(rows, LANES)
 
 
 def _check_slices(shift: int, slice_rows: int) -> None:
@@ -99,29 +105,46 @@ def _check_slices(shift: int, slice_rows: int) -> None:
 
 
 def table_build(r_part: torch.Tensor, rp_part: torch.Tensor, lo: int, hi: int,
-                part_bits: int, shift: int, slice_rows: int):
+                part_bits: int, shift: int, slice_rows: int,
+                starts: Optional[torch.Tensor] = None):
     """Build the (count, paysum) tables from partitioned R and its payloads.
 
-    Replaces the Pallas build_tables_pallas (prho_join.py:185).
+    starts: the R partition's starts table (partition_pass_kv's third
+    output, range mode over lo and shift with these part_bits).  The card
+    requires it: one CTA a bucket walks the bucket's run in every chunk
+    through it.  The CPU twin ignores it.  Replaces the Pallas
+    build_tables_pallas (prho_join.py:185).
     """
     _check_slices(shift, slice_rows)
     if (hi - lo) >> shift >= 1 << part_bits:
         raise ValueError(f"[{lo}, {hi}] spans more than 2^{part_bits} "
                          f"buckets of 2^{shift} keys")
-    if r_part.device.type == "cpu":
-        return build_tables(r_part, rp_part, lo, hi, part_bits, shift,
-                            slice_rows)
-    _build.check_cuda(r_part, rp_part)
     if rp_part.shape != r_part.shape:
         raise ValueError(f"payloads {tuple(rp_part.shape)} beside keys "
                          f"{tuple(r_part.shape)}")
+    cat_words = radix_ops.RadixGeom(part_bits=part_bits).cat_rows * LANES
+    if starts is not None:
+        nchunks = starts.numel() // cat_words
+        if nchunks * cat_words != starts.numel() or nchunks == 0 \
+                or r_part.numel() % nchunks \
+                or (r_part.numel() // nchunks) % LANES:
+            raise ValueError(f"starts of {starts.numel()} words for "
+                             f"{r_part.numel()} keys at {part_bits} bits")
+    if r_part.device.type == "cpu":
+        return build_tables(r_part, rp_part, lo, hi, part_bits, shift,
+                            slice_rows)
+    if starts is None:
+        raise ValueError("table_build on the card needs the partition's "
+                         "starts")
+    _build.check_cuda(r_part, rp_part, starts)
     shape = ((1 << part_bits) * slice_rows, LANES)
     cnt = torch.empty(shape, dtype=torch.int32, device=r_part.device)
     pay = torch.empty_like(cnt)
     _build.launch("table_build", "hbrj_table_build", r_part.device,
-                  r_part.data_ptr(), rp_part.data_ptr(), r_part.numel(),
-                  cnt.data_ptr(), pay.data_ptr(), cnt.numel(), lo, hi, shift,
-                  slice_rows * LANES)
+                  r_part.data_ptr(), rp_part.data_ptr(), starts.data_ptr(),
+                  nchunks, r_part.numel() // nchunks, cat_words,
+                  cnt.data_ptr(), pay.data_ptr(), 1 << part_bits, lo, hi,
+                  shift, slice_rows * LANES)
     return cnt, pay
 
 
@@ -296,7 +319,7 @@ class PrhoPlan:
     def build(self, r_part):
         g = self.geom
         return table_build(r_part[0], r_part[1], self.lo, self.hi,
-                           g.part_bits, g.shift, self.slice_rows)
+                           g.part_bits, g.shift, self.slice_rows, r_part[2])
 
     def s_partition(self):
         """(keys, payloads or None) of partitioned S."""

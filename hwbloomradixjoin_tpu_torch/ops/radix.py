@@ -28,7 +28,6 @@ matches with multiplicity.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import numpy as np
@@ -39,11 +38,6 @@ from hwbloomradixjoin_tpu_torch.ops import hashes
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY
 
 LANES = 128
-# the partition kernel keeps one per-warp counter per category in shared
-# memory: 2^13 buckets + the pad category fit; wider single-pass fan-outs
-# (full-int32-span key ranges, count spans past 2^27) wait for the wide
-# single-pass partition (ROADMAP slice 12)
-MAX_PART_BITS = 13
 # The gathered probe stages one bucket's R keys in shared memory: the JAX
 # package's default R_SEGS * SEG_ROWS * 128 = 40,960 keys, so every input the
 # JAX probe takes fits (160 KiB of a block's 227 KiB, beside the kernel's own
@@ -183,51 +177,52 @@ def partition_pass_kv_plain(keys_flat: torch.Tensor, pays_flat: torch.Tensor,
 
 
 def _partition_launch(keys_flat: torch.Tensor, pays_flat, geom: RadixGeom):
-    """Launch hbrj_partition (with a payload column when pays_flat is set)."""
+    """Launch hbrj_partition (with a payload column when pays_flat is set).
+
+    The kernel sizes its own scratch (hbrj_partition_scratch): one
+    histogram of at most 257 words per 4,096-key tile and, past one sweep,
+    a column of the input's size for each of keys, payloads and (hash mode)
+    categories, at any fan-out.
+    """
     nchunks = _nchunks(keys_flat, geom.chunk_rows)
     chunk = geom.chunk_rows * LANES
-    tile = LANES * math.gcd(geom.chunk_rows, 32)     # one warp's tile
     dev = keys_flat.device
+    hashed = geom.hash_seed is not None
     out = torch.empty((nchunks * geom.chunk_rows, LANES), dtype=torch.int32,
                       device=dev)
     starts = torch.empty((nchunks * geom.cat_rows, LANES), dtype=torch.int32,
                          device=dev)
-    hist = torch.empty(nchunks * geom.ncats * (chunk // tile),
-                       dtype=torch.int32, device=dev)
     pays_out = None if pays_flat is None else torch.empty_like(out)
+    words = _build.lib().hbrj_partition_scratch(
+        nchunks, chunk, geom.part_bits, int(geom.pad_cat), int(hashed),
+        int(pays_flat is not None))
+    scratch = torch.empty(max(words, 4), dtype=torch.int32, device=dev)
     if pays_flat is not None:
         name = "partition_kv"
     else:
-        name = "partition" if geom.hash_seed is None else "partition_hash"
+        name = "partition_hash" if hashed else "partition"
     _build.launch(name, "hbrj_partition", dev, keys_flat.data_ptr(),
                   None if pays_flat is None else pays_flat.data_ptr(),
                   out.data_ptr(),
                   None if pays_out is None else pays_out.data_ptr(),
-                  starts.data_ptr(), hist.data_ptr(), nchunks, chunk, tile,
+                  starts.data_ptr(), scratch.data_ptr(), nchunks, chunk,
                   geom.lo, geom.hi if geom.hi is not None else 0,
                   int(geom.hi is not None), geom.shift, geom.part_bits,
-                  int(geom.pad_cat), geom.cat_rows * LANES,
-                  int(geom.hash_seed is not None),
+                  int(geom.pad_cat), geom.cat_rows * LANES, int(hashed),
                   (geom.hash_seed or 0) & 0xFFFFFFFF, geom.hash_bits)
     return out, pays_out, starts
-
-
-def _check_fanout(geom: RadixGeom) -> None:
-    if geom.part_bits > MAX_PART_BITS:
-        raise NotImplementedError(
-            f"{geom.part_bits}-bit single-pass fan-out (> {MAX_PART_BITS}): "
-            "the wide single-pass partition, ROADMAP slice 12")
 
 
 def partition_pass(keys_flat: torch.Tensor, geom: RadixGeom):
     """One radix pass: chunk-major, bucket-major keys + per-chunk starts.
 
     keys_flat: (n,) int32, n a multiple of chunk_rows*128 (PAD_KEY padded).
-    Returns (keys_out (nchunks*chunk_rows, 128), starts (nchunks*cat_rows,
-    128)).  Replaces the Pallas partition_pass (radix.py:460).
+    Any part_bits the JAX planners return (up to 19 on the bitmap engine,
+    21 on the count tables) runs in one pass.  Returns (keys_out
+    (nchunks*chunk_rows, 128), starts (nchunks*cat_rows, 128)).  Replaces
+    the Pallas partition_pass (radix.py:460).
     """
     _nchunks(keys_flat, geom.chunk_rows)
-    _check_fanout(geom)
     if keys_flat.device.type == "cpu":
         return partition_pass_plain(keys_flat, geom)
     _build.check_cuda(keys_flat)
@@ -247,7 +242,6 @@ def partition_pass_kv(keys_flat: torch.Tensor, pays_flat: torch.Tensor,
     if pays_flat.shape != keys_flat.shape:
         raise ValueError(f"payloads {tuple(pays_flat.shape)} beside keys "
                          f"{tuple(keys_flat.shape)}")
-    _check_fanout(geom)
     if keys_flat.device.type == "cpu":
         return partition_pass_kv_plain(keys_flat, pays_flat, geom)
     _build.check_cuda(keys_flat, pays_flat)

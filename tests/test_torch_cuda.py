@@ -2,10 +2,12 @@
 
 Every test takes the `cuda` fixture and skips where no CUDA device exists (a
 CUDA kernel has no CPU mode); chip_smoke.py covers the main path's geometry,
-these cover the edges: tiny and odd chunks, 0 to 13 partition bits, pad
+these cover the edges: tiny and odd chunks, 0 to 20 partition bits in one
+pass (one sweep and digit passes; all-PAD and one-category chunks), pad
 category dropped, no range prune, negative and near-2^31 key ranges, padded
 and deep bitmap slices, payloads moved with the keys, count tables from
-empty chunks and from every key in one slot, probes with and without S
+empty chunks and from every key in one slot (every slice size, a key 64,999
+times, no starts refused), probes with and without S
 payloads, the hash-mode partition, pass 2 in both modes (all PAD, one chunk,
 empty buckets), the bloom probe (k = 1..8, B = 32 to 2^17, no survivors),
 the prune past the TPU's limits (2,049 chunks, a hot key), the dense count
@@ -176,12 +178,90 @@ def test_partition_kv_kernel_matches_twin(cuda, chunk_rows, part_bits, lo,
     assert torch.equal(got[2], keys_only[1])
 
 
+_WIDE_BITS = [1, 6, 10, 12, 13, 14, 17, 20]
+
+
+def _wide_geom(mode, chunk_rows, part_bits):
+    """Range mode over [1, 2^21 + 5] (the pad category kept or dropped), or
+    hash mode over part_bits + 4 block bits."""
+    if mode == "hash":
+        return X.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits,
+                           hash_seed=0x9E3779B9,
+                           hash_bits=min(part_bits + 4, 31))
+    return X.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits, lo=1,
+                       hi=(1 << 21) + 5, shift=22 - part_bits,
+                       pad_cat=mode != "range_nopad")
+
+
+def _partition_both(cuda, keys, pays, geom):
+    """Kernel against twin, keys only and (pays set) with payloads."""
+    keys = keys.to(cuda)
+    if pays is None:
+        got, want = X.partition_pass(keys, geom), \
+            X.partition_pass_plain(keys, geom)
+    else:
+        pays = pays.to(cuda)
+        got = X.partition_pass_kv(keys, pays, geom)
+        want = X.partition_pass_kv_plain(keys, pays, geom)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("chunk_rows,nchunks", [(8, 3), (24, 2), (40, 2),
+                                                (4096, 2)])
+@pytest.mark.parametrize("part_bits", _WIDE_BITS)
+@pytest.mark.parametrize("mode", ["range", "range_nopad", "hash", "kv"])
+def test_partition_kernel_every_width(cuda, chunk_rows, nchunks, part_bits,
+                                      mode):
+    """One pass at 1 to 20 bits: one sweep up to 8 bits, digit passes past
+    it; chunks smaller than a 4,096-key CTA tile (8, 24 rows), one and a
+    quarter tiles (40 rows) and 128 tiles; keys below lo and above hi,
+    PAD; bit for bit against the twins."""
+    rng = np.random.default_rng(part_bits * 31 + chunk_rows)
+    n = nchunks * chunk_rows * 128
+    if mode == "hash":
+        keys = _hash_keys(rng, n)
+    else:
+        keys = _keys(rng, n, 1, (1 << 21) + 5)
+    pays = None
+    if mode == "kv":
+        pays = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                                .astype(np.int32))
+    geom = _wide_geom("range" if mode == "kv" else mode, chunk_rows,
+                      part_bits)
+    _partition_both(cuda, keys, pays, geom)
+
+
+@pytest.mark.parametrize("part_bits", [6, 13, 17])
+@pytest.mark.parametrize("mode", ["range", "range_nopad", "hash"])
+def test_partition_kernel_pad_and_one_category_chunks(cuda, part_bits, mode):
+    """Chunk 0 all PAD, chunk 1 one key over and over (one category), chunk 2
+    mixed, with payloads."""
+    rng = np.random.default_rng(part_bits)
+    chunk = 40 * 128
+    keys = torch.cat([torch.full((chunk,), PAD, dtype=torch.int32),
+                      torch.full((chunk,), 777_777, dtype=torch.int32),
+                      _keys(rng, chunk, 1, (1 << 21) + 5)])
+    pays = torch.arange(3 * chunk, dtype=torch.int32)
+    geom = _wide_geom(mode, 40, part_bits)
+    _, _, starts = _partition_both(cuda, keys, pays, geom)
+    st = starts.view(3, -1).cpu()
+    cat_pad = 1 << part_bits if geom.pad_cat else None
+    if cat_pad is not None:
+        assert (st[0, :cat_pad + 1] == 0).all() and (st[0, cat_pad + 1:]
+                                                     == chunk).all()
+    _partition_both(cuda, keys, None, geom)
+
+
 def _tables_and_probe(cuda, rk, rp, sk, sp, lo, hi, bits=None):
     pb, shift, slr = P.plan_geometry_counts(lo, hi, bits)
     geom = X.RadixGeom(chunk_rows=8, part_bits=pb, lo=lo, hi=hi, shift=shift)
     r_part = X.partition_pass_kv(X._chunk_pad(rk, 1024, cuda),
                                  X._chunk_pad(rp, 1024, cuda), geom)
-    tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr)
+    tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr,
+                           r_part[2])
     want_t = P.build_tables(r_part[0], r_part[1], lo, hi, pb, shift, slr)
     assert torch.equal(tables[0], want_t[0])
     assert torch.equal(tables[1], want_t[1])
@@ -263,6 +343,50 @@ def test_prho_plan_on_card_equals_plan_on_cpu(cuda):
     want = _ref_sums(rk, rp, sk, sp)
     assert list(P.plan_prho_join(rk, rp, sk, sp, 1, 39_999,
                                  device=cuda).full_sums()) == want
+
+
+@pytest.mark.parametrize("bits", [13, 10, 6])         # shift 7, 10, 14
+def test_table_build_kernel_every_slice_size(cuda, bits):
+    """slice_rows 8 (shift 7: each slice 7/8 tail), 8 (shift 10) and 128
+    (shift 14), with R leaving buckets empty, a hot key repeated
+    64,999 times (the most the multiplicity guard lets through), PAD and
+    out-of-range keys: bit for bit against build_tables."""
+    rng = np.random.default_rng(bits)
+    lo, hi = 1, 1 << 20
+    pb, shift, slr = P.plan_geometry_counts(lo, hi, bits)
+    assert (pb, shift) == (bits, 20 - bits)
+    rk = np.concatenate([np.full(64_999, 4242, np.int32),     # one slot
+                         rng.integers(lo, hi // 16, 30_000).astype(np.int32),
+                         np.repeat(np.array([PAD, 0, -5, hi + 1, 2**31 - 1],
+                                            np.int32), 100)])
+    rp = rng.integers(-2**31, 2**31, len(rk), dtype=np.int64).astype(np.int32)
+    geom = X.RadixGeom(chunk_rows=40, part_bits=pb, lo=lo, hi=hi, shift=shift)
+    r_part = X.partition_pass_kv(X._chunk_pad(rk, 40 * 128, cuda),
+                                 X._chunk_pad(rp, 40 * 128, cuda), geom)
+    got = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr,
+                        r_part[2])
+    want = P.build_tables(r_part[0], r_part[1], lo, hi, pb, shift, slr)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0].max()) == int((rk == 4242).sum()) >= 64_999
+    # keys in the first sixteenth of the range: the other buckets are empty
+    assert int((got[0].view(1 << pb, -1).sum(1) == 0).sum()) \
+        == (1 << pb) - (1 << pb) // 16
+
+
+def test_table_build_kernel_all_pad_and_needs_starts(cuda):
+    """An all-PAD R gives zero tables; the card refuses a build without the
+    partition's starts."""
+    pad = np.full(3 * 1024, PAD, np.int32)
+    pb, shift, slr = P.plan_geometry_counts(1, 5000, 3)
+    geom = X.RadixGeom(chunk_rows=8, part_bits=pb, lo=1, hi=5000, shift=shift)
+    r_part = X.partition_pass_kv(X._chunk_pad(pad, 1024, cuda),
+                                 X._chunk_pad(pad, 1024, cuda), geom)
+    cnt, pay = P.table_build(r_part[0], r_part[1], 1, 5000, pb, shift, slr,
+                             r_part[2])
+    assert int(cnt.abs().sum()) == 0 and int(pay.abs().sum()) == 0
+    with pytest.raises(ValueError, match="starts"):
+        P.table_build(r_part[0], r_part[1], 1, 5000, pb, shift, slr)
 
 
 def _hash_keys(rng, n, pad_frac=0.07):
@@ -466,7 +590,8 @@ def _materialize_case(cuda, rk, rp, sk, sp, lo, hi, bits=None):
     geom = X.RadixGeom(chunk_rows=8, part_bits=pb, lo=lo, hi=hi, shift=shift)
     r_part = X.partition_pass_kv(X._chunk_pad(rk, 1024, cuda),
                                  X._chunk_pad(rp, 1024, cuda), geom)
-    tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr)
+    tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr,
+                           r_part[2])
     s_part = X.partition_pass_kv(X._chunk_pad(sk, 1024, cuda),
                                  X._chunk_pad(sp, 1024, cuda), geom)
     args = (*tables, s_part[0], s_part[1], lo, shift, pb, slr)

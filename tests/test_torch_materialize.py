@@ -107,7 +107,8 @@ def test_materialize_pairs_images():
     geom = TR.RadixGeom(chunk_rows=8, part_bits=pb, lo=lo, hi=hi, shift=shift)
     r_part = TR.partition_pass_kv(TR._chunk_pad(rk, 1024, "cpu"),
                                   TR._chunk_pad(rp, 1024, "cpu"), geom)
-    tables = TP.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr)
+    tables = TP.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr,
+                            r_part[2])
     s_part = TR.partition_pass_kv(torch.from_numpy(sk), torch.from_numpy(sp),
                                   geom)
     out_r, out_s, out_k, n = TP.materialize_pairs(

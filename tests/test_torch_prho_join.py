@@ -221,13 +221,47 @@ def test_multiplicity_guard_declines_like_jax():
 
 
 def test_fourteen_bit_count_geometry_raises_slice_2():
-    """Key spans in (2^27, 2^28] need 14 count-partition bits: the wide
-    single-pass partition, which two passes do not provide."""
+    """Key spans in (2^27, 2^28] plan 14 count-partition bits, as in the JAX
+    package; the port, which once raised there, now joins them in one
+    pass: the sums equal ref_join's."""
+    rng = np.random.default_rng(27)
     lo, hi = 1, (1 << 27) + 5
     assert TP.plan_geometry_counts(lo, hi)[0] == 14
-    rk = np.array([lo, hi, 77], np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 12"):
-        TP.plan_prho_join(rk, rk, rk, rk, lo, hi, device="cpu")
+    rk = np.concatenate([[lo, hi], rng.integers(lo, hi + 1, 3000)]) \
+        .astype(np.int32)
+    rp = _pays(rng, len(rk))
+    sk = np.concatenate([rng.choice(rk, 2000), _keys(rng, 3000, lo, hi)])
+    sp = _pays(rng, len(sk))
+    plan = TP.plan_prho_join(rk, rp, sk, sp, lo, hi, device="cpu",
+                             chunk_rows=8)
+    assert plan.geom.part_bits == 14
+    assert plan.full_sums() == _ref(rk, rp, sk, sp)
+
+
+@pytest.mark.parametrize("lo,hi,bits", [(1, 4000, None), (-3000, 70_000, 6)])
+def test_table_build_with_starts_matches_jax(lo, hi, bits):
+    """table_build given the R partition's starts (the card needs them; the
+    CPU twin ignores them) equals build_tables and the JAX package's XLA
+    build_tables; starts of the wrong size are refused."""
+    rng = np.random.default_rng(hi % 977)
+    rk = np.concatenate([_keys(rng, 5000, lo, hi), np.full(200, hi, np.int32)])
+    rp = _pays(rng, len(rk))
+    pb, shift, slr = TP.plan_geometry_counts(lo, hi, bits)
+    geom = TR.RadixGeom(chunk_rows=8, part_bits=pb, lo=lo, hi=hi, shift=shift)
+    r_part = TR.partition_pass_kv(TR._chunk_pad(rk, 1024, "cpu"),
+                                  TR._chunk_pad(rp, 1024, "cpu"), geom)
+    got = TP.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr,
+                         r_part[2])
+    twin = TP.build_tables(r_part[0], r_part[1], lo, hi, pb, shift, slr)
+    want = jax.jit(lambda k, p: JP.build_tables(k, p, lo, hi, pb, shift,
+                                                slr))(jnp.asarray(rk),
+                                                      jnp.asarray(rp))
+    for g, t, w in zip(got, twin, want):
+        assert torch.equal(g, t)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(ValueError, match="starts"):
+        TP.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr,
+                       r_part[2][:-8])
 
 
 def test_entry_points_default_to_the_card():

@@ -137,9 +137,29 @@ def test_compact_no_cap_and_chunk_pad():
 
 
 def test_partition_rejects_wide_fanout_and_bad_shapes():
+    """Fan-outs past 13 bits, which the port once refused, now partition
+    in one pass: 14 and 17 bits, keys only and with payloads, equal the
+    JAX Pallas passes (interpret mode) at chunk_rows=8.  Bad shapes and a
+    hash geometry wider than its block bits are still refused."""
+    rng = np.random.default_rng(14)
+    lo, hi = 1, (1 << 21) - 3
+    for part_bits in (14, 17):
+        keys = _keys(rng, 2 * 8 * 128, lo, hi)
+        pays = rng.integers(-2**31, 2**31, len(keys),
+                            dtype=np.int64).astype(np.int32)
+        kw = dict(chunk_rows=8, part_bits=part_bits, lo=lo, hi=hi,
+                  shift=21 - part_bits)
+        want = JR.partition_pass_kv(jnp.asarray(keys), jnp.asarray(pays),
+                                    interpret=True, geom=JR.RadixGeom(**kw))
+        got = TR.partition_pass_kv(torch.from_numpy(keys),
+                                   torch.from_numpy(pays), TR.RadixGeom(**kw))
+        got_k, got_s = TR.partition_pass(torch.from_numpy(keys),
+                                         TR.RadixGeom(**kw))
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert torch.equal(got_k, got[0]) and torch.equal(got_s, got[2])
     keys = torch.zeros(8 * 128, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 12"):
-        TR.partition_pass(keys, TR.RadixGeom(chunk_rows=8, part_bits=14))
     with pytest.raises(ValueError):
         TR.partition_pass(keys[:-1], TR.RadixGeom(chunk_rows=8, part_bits=2))
     with pytest.raises(ValueError):

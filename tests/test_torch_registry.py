@@ -202,13 +202,23 @@ def test_multiplicity_guard_falls_back(algo, tier):
 
 
 def test_fourteen_bit_count_span_raises_slice_2():
-    """A key span in (2^27, 2^28] plans 14 count-partition bits: the
-    one-pass partition raises the error of the wide single-pass partition
-    (which two passes do not lift), no fallback."""
-    rk = np.array([1, 1 << 27, (1 << 27) + 9], np.int32)
-    R = Relation.from_numpy(rk, rk, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 12"):
-        run_join("PRHO", R, R)
+    """A key span in (2^27, 2^28] plans 14 count-partition bits, which the
+    port once refused: run_join("PRHO") now takes cuda_prho there and
+    returns ref_join's count and checksums."""
+    rng = np.random.default_rng(9)
+    rk = np.concatenate([[1, 1 << 27, (1 << 27) + 9],
+                         rng.integers(1, (1 << 27) + 10, 2000)]) \
+        .astype(np.int32)
+    rp = rng.integers(0, 2**31 - 1, len(rk)).astype(np.int32)
+    sk = np.concatenate([rng.choice(rk, 3000),
+                         rng.integers(-5, (1 << 28), 3000)]).astype(np.int32)
+    sp = rng.integers(0, 2**31 - 1, len(sk)).astype(np.int32)
+    want = native.ref_join(rk, rp, sk, sp)
+    res, st, sums = run_join("PRHO", Relation.from_numpy(rk, rp, device="cpu"),
+                             Relation.from_numpy(sk, sp, device="cpu"))
+    assert st.tier == "cuda_prho"
+    assert res.count() == want[0]
+    assert sums == (want[1] % 2**32, want[2] % 2**32)
 
 
 @pytest.mark.parametrize("algo,cfg,kw", [
