@@ -52,7 +52,8 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
 4h. EngineConfig(materialize=True) over the same relations at q = 1
    (128,000,000 pairs) and q = 0.01: the cuda_materialize tier, the exact
    count, and the pair multiset of the portable sort_scan_materialize on
-   the card;
+   the card; then one line of the table probe's phase time at 13 (4b) to
+   17 bits (4j) and materialize's at q = 1 and 0.01;
 4i. radix_join_count (the general radix count join: 12 low bits, the
    gathered probe) over 4's q = 1 relations: 128,000,000, no overflow;
 4j. workload B's relations (4b's) under PRHO with
@@ -291,7 +292,7 @@ def compare_table_kernels(dev, rng, err) -> None:
     for with_sp in (True, False):
         args = (*tables, s_part[0], s_part[1] if with_sp else None, lo, shift,
                 pb, slr)
-        sums[with_sp] = P.probe_count_sums(*args)
+        sums[with_sp] = P.probe_count_sums(*args, s_part[2])
         record(err, "table_probe", sums[with_sp],
                P.probe_count_sums_plain(*args))
     c, r, s = native.ref_join(rk, rp, sk, sp)
@@ -443,7 +444,7 @@ def compare_new_kernels(dev, rng, err) -> None:
                            r_part[2])
     s_part = X.partition_pass_kv(s_in, sp_in, geom)
     args = (*tables, s_part[0], s_part[1], lo, shift, pb, slr)
-    out = P.materialize_pairs(*args)
+    out = P.materialize_pairs(*args, s_part[2])
     record(err, "materialize", out, P.materialize_pairs_plain(*args))
     n_pairs = int(np.isin(sk, rk).sum())
     if int(out[3]) != n_pairs:
@@ -695,8 +696,8 @@ def pair_order(r_pay, s_pay):
 def run_materialize(R, S, q, kind, launches):
     """Phase 4h: EngineConfig(materialize=True): the cuda_materialize tier,
     the exact count, and the pair multiset of the portable
-    sort_scan_materialize on the card.  Returns the plan of the same inputs
-    for kernel timing at q = 1, else None."""
+    sort_scan_materialize on the card.  Returns (the plan of the same inputs
+    for kernel timing at q = 1, else None; the materialize phase's ms)."""
     from hwbloomradixjoin_tpu_torch.config import EngineConfig
     from hwbloomradixjoin_tpu_torch.data import generator as G
     from hwbloomradixjoin_tpu_torch.ops import prho_join, xla_join
@@ -724,11 +725,12 @@ def run_materialize(R, S, q, kind, launches):
           f"the card ({time.perf_counter() - t0:.1f}s)", flush=True)
     add_launches(launches, ran)
     del res, out_r, out_s
+    ms = st.phases["materialize"] / 1e3
     if q != 1.0:
-        return None
+        return None, ms
     return prho_join.plan_materialize_join(R.key, R.payload, S.key,
                                            S.payload, 1, R_SIZE,
-                                           device=R.device)
+                                           device=R.device), ms
 
 
 def run_radix_count(R, S, kind, launches):
@@ -787,7 +789,8 @@ def plain_reference(algo, R, S, label):
 
 def run_workload_b(dev, kind, launches):
     """Phase 4b: PRHO, PRH and NPO on workload B against the ht tier.
-    Returns the PRHO plan of the same inputs for kernel timing."""
+    Returns the PRHO plan of the same inputs for kernel timing, R, S, the
+    ht tier's sums and PRHO's probe phase in ms."""
     from hwbloomradixjoin_tpu_torch.config import EngineConfig
     from hwbloomradixjoin_tpu_torch.data import generator as G
     from hwbloomradixjoin_tpu_torch.ops import prho_join
@@ -815,19 +818,23 @@ def run_workload_b(dev, kind, launches):
             raise AssertionError(f"{algo}: count {res.count()} sums {sums} "
                                  f"!= {expect} {want}")
         add_launches(launches, ran)
+        if algo == "PRHO":
+            probe_ms = st.phases["probe"] / 1e3
     plan = prho_join.plan_prho_join(R.key, R.payload, S.key, S.payload, 1,
                                     B_SIZE, device=dev)
-    return plan, R, S, ref_sums
+    return plan, R, S, ref_sums, probe_ms
 
 
 def run_wide_bits(R, S, ref_sums, kind, launches):
     """Phase 4j: workload B under PRHO with RadixConfig(num_radix_bits=b)
     for b = 14..17, figure 9's axis past the port's former 13-bit limit:
-    tier cuda_prho, the kernels launched, 4b's count and checksums."""
+    tier cuda_prho, the kernels launched, 4b's count and checksums.
+    Returns bits -> the probe phase in ms."""
     from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
     from hwbloomradixjoin_tpu_torch.data import generator as G
 
     expect = G.expected_uniform_match_count(B_SIZE, 1.0)
+    probe_ms = {}
     for bits in WIDE_BITS:
         cfg = EngineConfig(radix=RadixConfig(num_radix_bits=bits),
                            allow_dense=False)
@@ -842,6 +849,8 @@ def run_wide_bits(R, S, ref_sums, kind, launches):
                                  f"{res.count()} sums {sums}, want {expect} "
                                  f"{ref_sums}")
         add_launches(launches, ran)
+        probe_ms[bits] = st.phases["probe"] / 1e3
+    return probe_ms
 
 
 def partition_widths(dev, keys, pays) -> None:
@@ -925,7 +934,7 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
     gb, slr = b_plan.geom, b_plan.slice_rows
     r_kv, tables, s_kv = mb["r_part"], mb["tables"], mb["s_part"]
     tb_args = (r_kv[0], r_kv[1], 1, B_SIZE, gb.part_bits, gb.shift, slr)
-    pr_args = (*tables, *s_kv, 1, gb.shift, gb.part_bits, slr)
+    pr_args = (*tables, *s_kv[:2], 1, gb.shift, gb.part_bits, slr)
     keys = s_kv[0].reshape(-1)
     live = keys[(keys >= 1) & (keys < 1 + ((1 << gb.part_bits) << gb.shift))]
     slots_needed = torch.unique(live).numel()
@@ -945,8 +954,9 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
                       hash_bits=hash_bits)
     mb = mat_plan._intermediates()
     mg, mslr = mat_plan.geom, mat_plan.slice_rows
-    mat_args = (*mb["tables"], *mb["s_part"], 1, mg.shift, mg.part_bits, mslr)
-    keys = mb["s_part"][0].reshape(-1)
+    m_kv = mb["s_part"]
+    mat_args = (*mb["tables"], *m_kv[:2], 1, mg.shift, mg.part_bits, mslr)
+    keys = m_kv[0].reshape(-1)
     mat_slots = torch.unique(keys[(keys >= 1) & (keys <= R_SIZE)]).numel()
     del keys
     ggeom = X.RadixGeom()
@@ -978,9 +988,10 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
                         nbytes(*r_kv), r_kv[0].numel()),
         # the probe needs S's two columns and the two 4-byte slots of each
         # distinct in-range S key
-        "table_probe": (lambda: P.probe_count_sums(*pr_args),
+        "table_probe": (lambda: P.probe_count_sums(*pr_args, s_kv[2]),
                         lambda: P.probe_count_sums_plain(*pr_args),
-                        nbytes(*s_kv) + 8 * slots_needed, s_kv[0].numel()),
+                        nbytes(*s_kv[:2]) + 8 * slots_needed,
+                        s_kv[0].numel()),
         "partition_hash": (
             lambda: X.partition_pass(prune.sk_in, prune.pgeom),
             lambda: X.partition_pass_plain(prune.sk_in, prune.pgeom),
@@ -1005,10 +1016,10 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
                         nbytes(*dense_in), dense_in[0].numel()),
         # S's two columns, and the two 4-byte slots of each distinct
         # in-range S key
-        "materialize": (lambda: P.materialize_pairs(*mat_args),
+        "materialize": (lambda: P.materialize_pairs(*mat_args, m_kv[2]),
                         lambda: P.materialize_pairs_plain(*mat_args),
-                        nbytes(*mb["s_part"]) + 8 * mat_slots,
-                        mb["s_part"][0].numel()),
+                        nbytes(*m_kv[:2]) + 8 * mat_slots,
+                        m_kv[0].numel()),
         # both partitions once, and the F + 1 starts words of each chunk
         "gathered_probe": (
             lambda: X.gathered_probe_count(*gp_parts, ggeom),
@@ -1030,7 +1041,7 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
         print(f"{name}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
               f"{times[name][2]:.4f} ms ({read + written} bytes)", flush=True)
     keys_only = (*tables, s_kv[0], None, 1, gb.shift, gb.part_bits, slr)
-    record(err, "table_probe", P.probe_count_sums(*keys_only),
+    record(err, "table_probe", P.probe_count_sums(*keys_only, s_kv[2]),
            P.probe_count_sums_plain(*keys_only))
     print("kernel vs twin: bit-exact at the main paths' full shapes",
           flush=True)
@@ -1080,9 +1091,10 @@ def main():
     pro = {q: run_pro_path(dev, q, kind, launches) for q in (1.0, 0.01)}
     pro_plans = {q: plan for q, (plan, _, _) in pro.items()}
     t0 = done("4 (PRO 16M x 128M)", t0)
-    b_plan, b_r, b_s, b_sums = run_workload_b(dev, kind, launches)
+    b_plan, b_r, b_s, b_sums, probe_ms = run_workload_b(dev, kind, launches)
     t0 = done("4b (workload B)", t0)
-    run_wide_bits(b_r, b_s, b_sums, kind, launches)
+    probe_ms = {13: probe_ms, **run_wide_bits(b_r, b_s, b_sums, kind,
+                                              launches)}
     partition_widths(dev, b_plan.sk_in, b_plan.sp_in)
     del b_r, b_s
     torch.cuda.empty_cache()
@@ -1096,9 +1108,15 @@ def main():
     for q in (1.0, 0.01):
         run_dense(*pro[q][1:], q, kind, launches)
     t0 = done("4g (dense PRO, EngineConfig())", t0)
-    mat_plan = [run_materialize(*pro[q][1:], q, kind, launches)
-                for q in (1.0, 0.01)][0]
+    mat = {q: run_materialize(*pro[q][1:], q, kind, launches)
+           for q in (1.0, 0.01)}
+    mat_plan = mat[1.0][0]
     torch.cuda.empty_cache()
+    print("table_probe by width (workload B, PRHO's probe phase): "
+          + ", ".join(f"{b} bits {ms:.4f} ms" for b, ms in probe_ms.items())
+          + "; materialize (4h's phase): "
+          + ", ".join(f"q={q} {m[1]:.4f} ms" for q, m in mat.items()),
+          flush=True)
     t0 = done("4h (materialize)", t0)
     gp_parts = run_radix_count(*pro[1.0][1:], kind, launches)
     t0 = done("4i (radix_join_count)", t0)

@@ -60,9 +60,10 @@ _SIGNATURES = {
     "hbrj_bitmap_probe": [_vp, _vp, _ll, _vp, _i, _i, _i, _ll, _vp],
     "hbrj_table_build": [_vp, _vp, _vp, _i, _i, _i, _vp, _vp, _i, _i, _i, _i,
                          _i, _vp],
-    "hbrj_table_probe": [_vp, _vp, _vp, _vp, _ll, _vp, _i, _i, _i, _ll, _vp],
-    "hbrj_materialize": [_vp, _vp, _vp, _vp, _ll, _vp, _vp, _vp, _vp, _i, _i,
-                         _i, _ll, _vp],
+    "hbrj_table_probe": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp, _i, _i,
+                         _i, _i, _vp],
+    "hbrj_materialize": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp, _vp, _vp,
+                         _vp, _i, _i, _i, _i, _vp],
     "hbrj_dense_count": [_vp, _vp, _ll, _vp, _i, _i, _vp],
     "hbrj_gathered_probe": [_vp, _vp, _ll, _vp, _vp, _ll, _i, _i, _i, _i, _vp,
                             _vp],

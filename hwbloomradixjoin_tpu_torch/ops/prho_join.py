@@ -20,9 +20,10 @@ plan the same layout.  ``table_build``, ``probe_count_sums`` and
 R, ``MaterializePlan``) launch the CUDA kernels of ``csrc/prho_join.cu`` for
 tensors on the card and run their plain twins (``build_tables``,
 ``probe_count_sums_plain``, ``materialize_pairs_plain``) for tensors on the
-CPU.  The build walks each bucket's runs through the R partition's
-``starts``; the probe and materialization stream S flat.  So the TPU
-kernels' DMA windows (``derive_descs``, ``_probe_geom``) have no counterpart.
+CPU.  On the card each takes its partition's ``starts`` and walks each
+bucket's runs through them (R's for the build, S's for the probe and
+materialization), so the TPU kernels' DMA windows (``derive_descs``,
+``_probe_geom``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -122,18 +123,11 @@ def table_build(r_part: torch.Tensor, rp_part: torch.Tensor, lo: int, hi: int,
     if rp_part.shape != r_part.shape:
         raise ValueError(f"payloads {tuple(rp_part.shape)} beside keys "
                          f"{tuple(r_part.shape)}")
-    cat_words = radix_ops.RadixGeom(part_bits=part_bits).cat_rows * LANES
-    if starts is not None:
-        nchunks = starts.numel() // cat_words
-        if nchunks * cat_words != starts.numel() or nchunks == 0 \
-                or r_part.numel() % nchunks \
-                or (r_part.numel() // nchunks) % LANES:
-            raise ValueError(f"starts of {starts.numel()} words for "
-                             f"{r_part.numel()} keys at {part_bits} bits")
+    runs = _chunk_runs(starts, r_part, part_bits)
     if r_part.device.type == "cpu":
         return build_tables(r_part, rp_part, lo, hi, part_bits, shift,
                             slice_rows)
-    if starts is None:
+    if runs is None:
         raise ValueError("table_build on the card needs the partition's "
                          "starts")
     _build.check_cuda(r_part, rp_part, starts)
@@ -142,10 +136,24 @@ def table_build(r_part: torch.Tensor, rp_part: torch.Tensor, lo: int, hi: int,
     pay = torch.empty_like(cnt)
     _build.launch("table_build", "hbrj_table_build", r_part.device,
                   r_part.data_ptr(), rp_part.data_ptr(), starts.data_ptr(),
-                  nchunks, r_part.numel() // nchunks, cat_words,
-                  cnt.data_ptr(), pay.data_ptr(), 1 << part_bits, lo, hi,
-                  shift, slice_rows * LANES)
+                  *runs, cnt.data_ptr(), pay.data_ptr(), 1 << part_bits, lo,
+                  hi, shift, slice_rows * LANES)
     return cnt, pay
+
+
+def _chunk_runs(starts: Optional[torch.Tensor], part: torch.Tensor,
+                part_bits: int):
+    """(nchunks, chunk_elems, cat_words) of a partition's starts table
+    beside its keys, or None without starts; raises on a size mismatch."""
+    if starts is None:
+        return None
+    cat_words = radix_ops.RadixGeom(part_bits=part_bits).cat_rows * LANES
+    nchunks = starts.numel() // cat_words
+    if nchunks * cat_words != starts.numel() or nchunks == 0 \
+            or part.numel() % nchunks or (part.numel() // nchunks) % LANES:
+        raise ValueError(f"starts of {starts.numel()} words for "
+                         f"{part.numel()} keys at {part_bits} bits")
+    return nchunks, part.numel() // nchunks, cat_words
 
 
 def probe_count_sums_plain(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
@@ -174,20 +182,28 @@ def probe_count_sums_plain(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
 
 def probe_count_sums(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
                      s_part: torch.Tensor, sp_part, lo: int, shift: int,
-                     part_bits: int, slice_rows: int) -> torch.Tensor:
+                     part_bits: int, slice_rows: int,
+                     starts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Probe partitioned S (and its payloads, or None) against the tables.
 
     Returns a (3,) int64 tensor on s_part's device: the match count, the sum
     of matched R payloads and the sum of S payload * multiplicity, both mod
-    2^32 (s_sum 0 without S payloads).  Replaces the Pallas probe_count_sums
-    (prho_join.py:351).
+    2^32 (s_sum 0 without S payloads).  starts: the S partition's starts
+    table (range mode over lo and shift at these part_bits, the pad category
+    kept).  The card requires it: one CTA a bucket range walks the range's
+    runs in every chunk through it.  The CPU twin ignores it.  Replaces the
+    Pallas probe_count_sums (prho_join.py:351).
     """
     _check_slices(shift, slice_rows)
+    runs = _chunk_runs(starts, s_part, part_bits)
     if s_part.device.type == "cpu":
         return probe_count_sums_plain(cnt_tbl, pay_tbl, s_part, sp_part, lo,
                                       shift, part_bits, slice_rows)
+    if runs is None:
+        raise ValueError("probe_count_sums on the card needs the S "
+                         "partition's starts")
     parts = (s_part,) if sp_part is None else (s_part, sp_part)
-    _build.check_cuda(cnt_tbl, pay_tbl, *parts)
+    _build.check_cuda(cnt_tbl, pay_tbl, starts, *parts)
     _check_tables(cnt_tbl, pay_tbl, part_bits, shift, slice_rows)
     if sp_part is not None and sp_part.shape != s_part.shape:
         raise ValueError(f"payloads {tuple(sp_part.shape)} beside keys "
@@ -196,8 +212,8 @@ def probe_count_sums(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
     _build.launch("table_probe", "hbrj_table_probe", s_part.device,
                   cnt_tbl.data_ptr(), pay_tbl.data_ptr(), s_part.data_ptr(),
                   None if sp_part is None else sp_part.data_ptr(),
-                  s_part.numel(), out.data_ptr(), lo, shift, 1 << part_bits,
-                  slice_rows * LANES)
+                  starts.data_ptr(), *runs, out.data_ptr(), lo, shift,
+                  1 << part_bits, slice_rows * LANES)
     return out
 
 
@@ -236,35 +252,40 @@ def materialize_pairs_plain(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
 
 def materialize_pairs(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
                       s_part: torch.Tensor, sp_part: torch.Tensor, lo: int,
-                      shift: int, part_bits: int, slice_rows: int):
+                      shift: int, part_bits: int, slice_rows: int,
+                      starts: Optional[torch.Tensor] = None):
     """Emit each matched S slot's (r_pay, s_pay, key) for a unique R.
 
     Returns three int32 images of s_part's shape, slot for slot: the pair
     and key where S key i has a match, PAD elsewhere; and the match count
     as an int64 scalar tensor.  The tables must come from a unique R (every
-    count slot 0 or 1: the payload slot then holds the R payload).  This
-    flat layout replaces the TPU kernel's staged-window image; the contract
-    is the pair multiset and the count, not the order.  Replaces the Pallas
+    count slot 0 or 1: the payload slot then holds the R payload).  starts:
+    the S partition's starts, as for probe_count_sums (the card requires
+    it, the CPU twin ignores it).  This layout, congruent with partitioned
+    S, replaces the TPU kernel's staged-window image; the contract is the
+    pair multiset and the count, not the order.  Replaces the Pallas
     materialize_pairs (prho_join.py:759).
     """
     _check_tables(cnt_tbl, pay_tbl, part_bits, shift, slice_rows)
     if sp_part.shape != s_part.shape:
         raise ValueError(f"payloads {tuple(sp_part.shape)} beside keys "
                          f"{tuple(s_part.shape)}")
+    runs = _chunk_runs(starts, s_part, part_bits)
     if s_part.device.type == "cpu":
         return materialize_pairs_plain(cnt_tbl, pay_tbl, s_part, sp_part, lo,
                                        shift, part_bits, slice_rows)
-    _build.check_cuda(cnt_tbl, pay_tbl, s_part, sp_part)
-    if s_part.numel() % 4:
-        raise ValueError(f"{s_part.numel()} keys: the kernel takes whole "
-                         "16-byte groups")
+    if runs is None:
+        raise ValueError("materialize_pairs on the card needs the S "
+                         "partition's starts")
+    _build.check_cuda(cnt_tbl, pay_tbl, s_part, sp_part, starts)
     out_r, out_s, out_k = (torch.empty_like(s_part) for _ in range(3))
     count = torch.empty((), dtype=torch.int64, device=s_part.device)
     _build.launch("materialize", "hbrj_materialize", s_part.device,
                   cnt_tbl.data_ptr(), pay_tbl.data_ptr(), s_part.data_ptr(),
-                  sp_part.data_ptr(), s_part.numel(), out_r.data_ptr(),
-                  out_s.data_ptr(), out_k.data_ptr(), count.data_ptr(), lo,
-                  shift, 1 << part_bits, slice_rows * LANES)
+                  sp_part.data_ptr(), starts.data_ptr(), *runs,
+                  out_r.data_ptr(), out_s.data_ptr(), out_k.data_ptr(),
+                  count.data_ptr(), lo, shift, 1 << part_bits,
+                  slice_rows * LANES)
     return out_r, out_s, out_k, count
 
 
@@ -322,17 +343,17 @@ class PrhoPlan:
                            g.part_bits, g.shift, self.slice_rows, r_part[2])
 
     def s_partition(self):
-        """(keys, payloads or None) of partitioned S."""
+        """(keys, payloads or None, starts) of partitioned S."""
         if self.sp_in is None:
-            return radix_ops.partition_pass(self.sk_in, self.geom)[0], None
-        return radix_ops.partition_pass_kv(self.sk_in, self.sp_in,
-                                           self.geom)[:2]
+            keys, starts = radix_ops.partition_pass(self.sk_in, self.geom)
+            return keys, None, starts
+        return radix_ops.partition_pass_kv(self.sk_in, self.sp_in, self.geom)
 
     def probe(self, tables, s_part) -> torch.Tensor:
         g = self.geom
         return probe_count_sums(tables[0], tables[1], s_part[0], s_part[1],
                                 self.lo, g.shift, g.part_bits,
-                                self.slice_rows)
+                                self.slice_rows, s_part[2])
 
     def full(self) -> torch.Tensor:
         tables = self.build(self.r_partition())
@@ -371,7 +392,7 @@ class MaterializePlan(PrhoPlan):
         g = self.geom
         return materialize_pairs(tables[0], tables[1], s_part[0], s_part[1],
                                  self.lo, g.shift, g.part_bits,
-                                 self.slice_rows)
+                                 self.slice_rows, s_part[2])
 
     def phase_fns(self) -> dict:
         fns = super().phase_fns()

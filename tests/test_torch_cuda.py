@@ -12,7 +12,10 @@ payloads, the hash-mode partition, pass 2 in both modes (all PAD, one chunk,
 empty buckets), the bloom probe (k = 1..8, B = 32 to 2^17, no survivors),
 the prune past the TPU's limits (2,049 chunks, a hot key), the dense count
 (odd lengths, wrapping sums, all PAD), materialization (payloads at -2^31,
-PAD, empty buckets), the gathered probe (duplicates, empty buckets, a bucket
+PAD, empty buckets), the probe and materialization over bucket ranges
+(every slice size, 1 to 16 buckets a CTA, one bucket holding all of S, a pad
+category covering most of S over a sentinel-filled allocator, no starts
+refused), the gathered probe (duplicates, empty buckets, a bucket
 at and one past its capacity), the default config's dense tier and the
 launch counters.  This file imports no jax, so on a machine without it run:
 
@@ -255,22 +258,25 @@ def test_partition_kernel_pad_and_one_category_chunks(cuda, part_bits, mode):
     _partition_both(cuda, keys, None, geom)
 
 
-def _tables_and_probe(cuda, rk, rp, sk, sp, lo, hi, bits=None):
+def _tables_and_probe(cuda, rk, rp, sk, sp, lo, hi, bits=None,
+                      chunk_rows=8):
     pb, shift, slr = P.plan_geometry_counts(lo, hi, bits)
-    geom = X.RadixGeom(chunk_rows=8, part_bits=pb, lo=lo, hi=hi, shift=shift)
-    r_part = X.partition_pass_kv(X._chunk_pad(rk, 1024, cuda),
-                                 X._chunk_pad(rp, 1024, cuda), geom)
+    chunk = chunk_rows * 128
+    geom = X.RadixGeom(chunk_rows=chunk_rows, part_bits=pb, lo=lo, hi=hi,
+                       shift=shift)
+    r_part = X.partition_pass_kv(X._chunk_pad(rk, chunk, cuda),
+                                 X._chunk_pad(rp, chunk, cuda), geom)
     tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr,
                            r_part[2])
     want_t = P.build_tables(r_part[0], r_part[1], lo, hi, pb, shift, slr)
     assert torch.equal(tables[0], want_t[0])
     assert torch.equal(tables[1], want_t[1])
-    s_part = X.partition_pass_kv(X._chunk_pad(sk, 1024, cuda),
-                                 X._chunk_pad(sp, 1024, cuda), geom)
+    s_part = X.partition_pass_kv(X._chunk_pad(sk, chunk, cuda),
+                                 X._chunk_pad(sp, chunk, cuda), geom)
     sums = []
     for s_pay in (s_part[1], None):
         args = (*tables, s_part[0], s_pay, lo, shift, pb, slr)
-        got = P.probe_count_sums(*args)
+        got = P.probe_count_sums(*args, s_part[2])
         assert torch.equal(got, P.probe_count_sums_plain(*args))
         sums.append(got.tolist())
     return tables, sums
@@ -387,6 +393,135 @@ def test_table_build_kernel_all_pad_and_needs_starts(cuda):
     assert int(cnt.abs().sum()) == 0 and int(pay.abs().sum()) == 0
     with pytest.raises(ValueError, match="starts"):
         P.table_build(r_part[0], r_part[1], 1, 5000, pb, shift, slr)
+
+
+def _range_case(cuda, rk, rp, sk, sp, lo, hi, bits, chunk_rows):
+    """A unique R: the probe (with and without S payloads) and
+    materialization over bucket ranges, each equal to its twin; returns
+    the probe's sums with payloads and the images."""
+    _, (with_sp, keys_only) = _tables_and_probe(cuda, rk, rp, sk, sp, lo, hi,
+                                                bits, chunk_rows)
+    assert keys_only == with_sp[:2] + [0]
+    return with_sp, _materialize_case(cuda, rk, rp, sk, sp, lo, hi, bits,
+                                      chunk_rows)
+
+
+def _unique_case(rng, lo, hi, n_r, n_s):
+    """A unique R over [lo, hi] (its ends included) and an S of hits,
+    misses, keys below lo, above hi inside the last bucket and past it,
+    and PAD."""
+    rk = (rng.choice(hi - lo + 1, n_r, replace=False) + lo).astype(np.int32)
+    rk[:2] = [lo, hi]
+    rp = rng.integers(-2**31, 2**31, n_r, dtype=np.int64).astype(np.int32)
+    sk = np.concatenate([rng.choice(rk, n_s // 2),
+                         _keys(rng, n_s - n_s // 2 - 40, lo, hi).numpy(),
+                         np.repeat(np.array([lo - 1, hi + 1, PAD], np.int32),
+                                   10), np.full(10, hi, np.int32)])
+    sp = rng.integers(-2**31, 2**31, len(sk), dtype=np.int64).astype(np.int32)
+    return rk, rp, sk, sp
+
+
+@pytest.mark.parametrize("chunk_rows", [8, 4096])
+@pytest.mark.parametrize("lo,hi,bits", [
+    (1, (1 << 21) - 3, b) for b in range(7, 15)] + [
+    (5, (1 << 24) + 1, b) for b in (14, 17)])
+def test_range_kernels_every_slice_size(cuda, chunk_rows, lo, hi, bits):
+    """Shift 14 down to 7 (slices of 2^14 slots, one bucket a CTA, to 1,024
+    slots, 16 a CTA) over [1, 2^21 - 3], and 14 and 17 bits over a 2^24
+    span (several buckets a CTA, 131,072 buckets): the probe and
+    materialization equal their twins and ref_join's sums; hi leaves the
+    last bucket part empty, so S's keys above hi inside it reach the
+    arithmetic test."""
+    from hwbloomradixjoin_tpu_torch.data import native
+    rng = np.random.default_rng(bits * 17 + chunk_rows)
+    pb, shift, _ = P.plan_geometry_counts(lo, hi, bits)
+    assert pb == bits
+    rk, rp, sk, sp = _unique_case(rng, lo, hi, 20_000, 60_000)
+    top = lo + ((1 << pb) << shift)
+    sk[-30:-20] = rng.integers(hi + 1, top, 10)   # above hi, below F's end
+    sums, out = _range_case(cuda, rk, rp, sk, sp, lo, hi, bits, chunk_rows)
+    c, r, s = native.ref_join(rk, rp, sk, sp)
+    assert sums == [c, r % 2**32, s % 2**32] and int(out[3]) == c
+
+
+@pytest.mark.parametrize("chunk_rows", [8, 4096])
+def test_range_kernels_one_bucket_all_pad_and_empty_buckets(cuda, chunk_rows):
+    """All of S in bucket 0 (one CTA walks every key), R and S in the
+    first buckets only (the other CTAs walk empty runs), and an all-PAD S
+    (zero sums, PAD images)."""
+    rng = np.random.default_rng(chunk_rows)
+    lo, hi = 1, 1 << 22
+    pb, shift, _ = P.plan_geometry_counts(lo, hi, 10)
+    rk = np.arange(lo, lo + (1 << shift), 3, dtype=np.int32)   # bucket 0
+    rp = rng.integers(-2**31, 2**31, len(rk), dtype=np.int64).astype(np.int32)
+    sk = rng.integers(lo, lo + (1 << shift), 50_000).astype(np.int32)
+    sp = rng.integers(-2**31, 2**31, len(sk), dtype=np.int64).astype(np.int32)
+    sums, out = _range_case(cuda, rk, rp, sk, sp, lo, hi, 10, chunk_rows)
+    hits = int(np.isin(sk, rk).sum())
+    assert sums[0] == int(out[3]) == hits > 10_000
+    sk2 = rng.integers(lo, lo + 3 * (1 << shift), 50_000).astype(np.int32)
+    sums, out = _range_case(cuda, rk, rp, sk2, sp, lo, hi, 10, chunk_rows)
+    assert sums[0] == int(np.isin(sk2, rk).sum())
+    pad = np.full(7000, PAD, np.int32)
+    sums, out = _range_case(cuda, rk, rp, pad, sp[:7000], lo, hi, 10,
+                            chunk_rows)
+    assert sums == [0, 0, 0] and all((o == PAD).all() for o in out[:3])
+
+
+def test_materialize_pad_category_over_a_sentinel(cuda):
+    """q = 0.01-like S (99 % outside [lo, hi]: the pad runs cover most of
+    every 2^19-key chunk, spread over many fill CTAs): with the caching
+    allocator's blocks of the images' size filled with a sentinel first,
+    every image slot is written (equal to the twin, no sentinel left)."""
+    rng = np.random.default_rng(99)
+    lo, hi = 1, 1 << 20
+    rk = (rng.choice(hi, 200_000, replace=False) + 1).astype(np.int32)
+    rp = rng.integers(-2**31, 2**31, len(rk), dtype=np.int64).astype(np.int32)
+    n = 3 * 4096 * 128
+    sk = rng.integers(hi + 1, 2**31 - 1, n).astype(np.int32)
+    live = rng.random(n) < 0.01
+    sk[live] = rng.choice(rk, int(live.sum()))
+    sk[-5000:] = PAD
+    sp = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    pb, shift, slr = P.plan_geometry_counts(lo, hi)
+    geom = X.RadixGeom(chunk_rows=4096, part_bits=pb, lo=lo, hi=hi,
+                       shift=shift)
+    r_part = X.partition_pass_kv(X._chunk_pad(rk, 4096 * 128, cuda),
+                                 X._chunk_pad(rp, 4096 * 128, cuda), geom)
+    tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr,
+                           r_part[2])
+    s_part = X.partition_pass_kv(torch.from_numpy(sk).to(cuda),
+                                 torch.from_numpy(sp).to(cuda), geom)
+    sentinel = 0x5A5A5A5A
+    blocks = [torch.full_like(s_part[0], sentinel) for _ in range(4)]
+    torch.cuda.synchronize()
+    del blocks
+    args = (*tables, s_part[0], s_part[1], lo, shift, pb, slr)
+    got = P.materialize_pairs(*args, s_part[2])
+    want = P.materialize_pairs_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not any(bool((g == sentinel).any()) for g in got[:3])
+    assert int(got[3]) == int(np.isin(sk, rk).sum()) > 0
+    # the bucket runs end where the pad run starts: under 2 % of S
+    assert int(s_part[2].view(3, -1)[:, 1 << pb].sum()) < 0.02 * n
+
+
+def test_probe_and_materialize_need_starts(cuda):
+    pad = np.full(3 * 1024, PAD, np.int32)
+    pb, shift, slr = P.plan_geometry_counts(1, 5000, 3)
+    geom = X.RadixGeom(chunk_rows=8, part_bits=pb, lo=1, hi=5000, shift=shift)
+    part = X.partition_pass_kv(X._chunk_pad(pad, 1024, cuda),
+                               X._chunk_pad(pad, 1024, cuda), geom)
+    tables = P.table_build(part[0], part[1], 1, 5000, pb, shift, slr, part[2])
+    args = (*tables, part[0], part[1], 1, shift, pb, slr)
+    with pytest.raises(ValueError, match="starts"):
+        P.probe_count_sums(*args)
+    with pytest.raises(ValueError, match="starts"):
+        P.materialize_pairs(*args)
+    with pytest.raises(ValueError, match="starts"):
+        P.probe_count_sums(*args, part[2][:-1])
 
 
 def _hash_keys(rng, n, pad_frac=0.07):
@@ -584,18 +719,21 @@ def test_dense_kernel_all_pad_and_empty(cuda):
     assert D.dense_count_join(empty, empty, 1, 100).tolist() == [0, 0]
 
 
-def _materialize_case(cuda, rk, rp, sk, sp, lo, hi, bits=None):
+def _materialize_case(cuda, rk, rp, sk, sp, lo, hi, bits=None,
+                      chunk_rows=8):
     """Tables from R, images from S on the card; equal to the twins'."""
     pb, shift, slr = P.plan_geometry_counts(lo, hi, bits)
-    geom = X.RadixGeom(chunk_rows=8, part_bits=pb, lo=lo, hi=hi, shift=shift)
-    r_part = X.partition_pass_kv(X._chunk_pad(rk, 1024, cuda),
-                                 X._chunk_pad(rp, 1024, cuda), geom)
+    chunk = chunk_rows * 128
+    geom = X.RadixGeom(chunk_rows=chunk_rows, part_bits=pb, lo=lo, hi=hi,
+                       shift=shift)
+    r_part = X.partition_pass_kv(X._chunk_pad(rk, chunk, cuda),
+                                 X._chunk_pad(rp, chunk, cuda), geom)
     tables = P.table_build(r_part[0], r_part[1], lo, hi, pb, shift, slr,
                            r_part[2])
-    s_part = X.partition_pass_kv(X._chunk_pad(sk, 1024, cuda),
-                                 X._chunk_pad(sp, 1024, cuda), geom)
+    s_part = X.partition_pass_kv(X._chunk_pad(sk, chunk, cuda),
+                                 X._chunk_pad(sp, chunk, cuda), geom)
     args = (*tables, s_part[0], s_part[1], lo, shift, pb, slr)
-    got = P.materialize_pairs(*args)
+    got = P.materialize_pairs(*args, s_part[2])
     want = P.materialize_pairs_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):

@@ -112,7 +112,7 @@ def test_materialize_pairs_images():
     s_part = TR.partition_pass_kv(torch.from_numpy(sk), torch.from_numpy(sp),
                                   geom)
     out_r, out_s, out_k, n = TP.materialize_pairs(
-        *tables, s_part[0], s_part[1], lo, shift, pb, slr)
+        *tables, s_part[0], s_part[1], lo, shift, pb, slr, s_part[2])
     keys, pays = s_part[0].numpy().ravel(), s_part[1].numpy().ravel()
     rmap = dict(zip(rk.tolist(), rp.tolist()))
     hit = np.array([k in rmap for k in keys.tolist()])

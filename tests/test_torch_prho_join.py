@@ -151,23 +151,24 @@ def _jax_probe_inputs():
     geom = JB._probe_geom(pb, shift, slr, lo, 8, nchunks,
                           int(np.diff(runs.astype(np.int64), axis=1).max()))
     rd, od = JB.derive_descs(st.reshape(nchunks, -1, 128), geom)
-    return (rk, rp, sk, sp), (ct, pt, s2, p2, rd, od, geom), (lo, pb, shift,
-                                                              slr)
+    return (rk, rp, sk, sp), (ct, pt, s2, p2, st, rd, od, geom), (lo, pb,
+                                                                  shift, slr)
 
 
 @pytest.mark.parametrize("with_spay", [True, False])
 def test_probe_matches_jax_pallas_interpret(with_spay):
     """The probe twin equals the JAX Pallas probe_count_sums (interpret mode,
-    descriptors from derive_descs) on S partitioned by partition_pass_kv."""
-    (rk, rp, sk, sp), (ct, pt, s2, p2, rd, od, geom), (lo, pb, shift, slr) = \
-        _jax_probe_inputs()
+    descriptors from derive_descs) on S partitioned by partition_pass_kv,
+    the wrapper given the partition's starts as on the card."""
+    (rk, rp, sk, sp), (ct, pt, s2, p2, st, rd, od, geom), \
+        (lo, pb, shift, slr) = _jax_probe_inputs()
     want = JP.probe_count_sums(ct, pt, s2, p2 if with_spay else None, rd, od,
                                geom, interpret=True)
     got = TP.probe_count_sums(
         torch.from_numpy(np.array(ct)), torch.from_numpy(np.array(pt)),
         torch.from_numpy(np.array(s2)),
         torch.from_numpy(np.array(p2)) if with_spay else None,
-        lo, shift, pb, slr)
+        lo, shift, pb, slr, torch.from_numpy(np.array(st)))
     assert got.tolist() == [int(want[0]), int(want[1]) % M32,
                             int(want[2]) % M32]
     c, r, s = _ref(rk, rp, sk, sp)
@@ -220,7 +221,7 @@ def test_multiplicity_guard_declines_like_jax():
     assert plan is not None
 
 
-def test_fourteen_bit_count_geometry_raises_slice_2():
+def test_fourteen_bit_count_geometry_joins_in_one_pass():
     """Key spans in (2^27, 2^28] plan 14 count-partition bits, as in the JAX
     package; the port, which once raised there, now joins them in one
     pass: the sums equal ref_join's."""
@@ -285,3 +286,94 @@ def test_entry_points_default_to_the_card():
         else:
             with pytest.raises((AssertionError, RuntimeError)):
                 call()
+
+
+def _range_walk(cnt, pay, s_part, sp_part, starts, lo, shift, part_bits,
+                slice_rows, nb):
+    """What the card's probe and materialize compute, in plain torch: each
+    range of nb buckets reads only its merged run [starts[c][b0],
+    starts[c][b1]) of every chunk and looks up only the keys whose
+    arithmetic bucket lies in [b0, b1); the pad runs [starts[c][F], end)
+    are never read and materialize as PAD.  Returns ((count, r_sum, s_sum),
+    (out_r, out_s, out_k, n))."""
+    F = 1 << part_bits
+    cat_words = TR.RadixGeom(part_bits=part_bits).cat_rows * 128
+    nchunks = starts.numel() // cat_words
+    st = starts.reshape(nchunks, cat_words).long()
+    keys = s_part.reshape(nchunks, -1).long()
+    pos = torch.arange(keys.shape[1]).expand(nchunks, -1).contiguous()
+    firsts = list(range(0, F, nb))
+    bounds = st[:, firsts + [F]].contiguous()
+    owner = torch.searchsorted(bounds, pos, right=True) - 1   # its range
+    b0 = owner * nb
+    norm = (keys - lo + 2**31) % M32 - 2**31               # int32 wrap
+    bucket = norm >> shift
+    look = (owner < len(firsts)) & (bucket >= b0) \
+        & (bucket < torch.clamp(b0 + nb, max=F))
+    slot = torch.where(look, bucket * slice_rows * 128
+                       + (norm & ((1 << shift) - 1)), 0)
+    c = cnt.reshape(-1)[slot].long() * look
+    p = (pay.reshape(-1)[slot].long() & (M32 - 1)) * look
+    sp = torch.zeros_like(keys) if sp_part is None \
+        else sp_part.reshape(nchunks, -1).long()
+    sums = [int(c.sum()), int(p.sum()) % M32,
+            int(((sp & (M32 - 1)) * c).sum()) % M32]
+    hit = c > 0
+    images = tuple(torch.where(hit, v, PAD).to(torch.int32)
+                   .reshape(s_part.shape)
+                   for v in (pay.reshape(-1)[slot].long(), sp, keys))
+    return sums, images + (int(hit.sum()),)
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+def test_walking_bucket_runs_equals_the_flat_twins(nb):
+    """Skipping the pad category's run is exact: S holds keys below lo,
+    above hi inside the last bucket and past it (up to lo + F * 2^shift
+    and beyond) and PAD; summing over the bucket runs of partitioned S,
+    nb buckets a range as the card's CTAs do, equals the flat twins'
+    sums (with and without S payloads) and images, and the pad run's keys
+    read only zero slots."""
+    rng = np.random.default_rng(40 + nb)
+    lo, hi = 1, 5000
+    pb, shift, slr = TP.plan_geometry_counts(lo, hi, 3)
+    top = lo + ((1 << pb) << shift)                 # past the last bucket
+    assert (pb, shift) == (3, 10) and hi < top - 1
+    rk = rng.choice(np.arange(lo, hi + 1), 3000,
+                    replace=False).astype(np.int32)
+    rk[:2] = [lo, hi]
+    rp = _pays(rng, len(rk))
+    edges = np.array([lo - 1, -7, hi + 1, top - 1, top, top + 5, PAD],
+                     np.int32)
+    sk = np.concatenate([rng.choice(rk, 1200), _keys(rng, 1500, lo, hi),
+                         rng.integers(hi + 1, top, 300).astype(np.int32),
+                         np.repeat(edges, 10)])
+    sp = _pays(rng, len(sk))
+    geom = TR.RadixGeom(chunk_rows=8, part_bits=pb, lo=lo, hi=hi, shift=shift)
+    r_part = TR.partition_pass_kv(TR._chunk_pad(rk, 1024, "cpu"),
+                                  TR._chunk_pad(rp, 1024, "cpu"), geom)
+    tables = TP.build_tables(r_part[0], r_part[1], lo, hi, pb, shift, slr)
+    s_part = TR.partition_pass_kv(TR._chunk_pad(sk, 1024, "cpu"),
+                                  TR._chunk_pad(sp, 1024, "cpu"), geom)
+    args = (lo, shift, pb, slr)
+    sums, images = _range_walk(*tables, s_part[0], s_part[1], s_part[2],
+                               *args, nb)
+    flat = TP.probe_count_sums_plain(*tables, *s_part[:2], *args)
+    assert sums == flat.tolist() == list(_ref(rk, rp, sk, sp))
+    keys_only, _ = _range_walk(*tables, s_part[0], None, s_part[2], *args, nb)
+    assert keys_only == TP.probe_count_sums_plain(
+        *tables, s_part[0], None, *args).tolist() == sums[:2] + [0]
+    want = TP.materialize_pairs_plain(*tables, *s_part[:2], *args)
+    for g, w in zip(images[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert images[3] == int(want[3]) == int(np.isin(sk, rk).sum())
+    # the flat test admits pad-run keys in (hi, top): their slots are zero
+    k = s_part[0].reshape(-1).long()
+    above = (k > hi) & (k < top)
+    assert int(above.sum()) >= 300
+    assert int(tables[0].reshape(-1)[(k[above] - lo) // (1 << shift) * slr
+                                     * 128 + (k[above] - lo) % (1 << shift)]
+               .abs().sum()) == 0
+    with pytest.raises(ValueError, match="starts"):
+        TP.probe_count_sums(*tables, *s_part[:2], *args, s_part[2][:-1])
+    with pytest.raises(ValueError, match="starts"):
+        TP.materialize_pairs(*tables, *s_part[:2], *args, s_part[2][:-1])

@@ -136,7 +136,7 @@ def test_compact_no_cap_and_chunk_pad():
     assert (counts.numpy() == len(live)).all()
 
 
-def test_partition_rejects_wide_fanout_and_bad_shapes():
+def test_partition_takes_wide_fanout_and_rejects_bad_shapes():
     """Fan-outs past 13 bits, which the port once refused, now partition
     in one pass: 14 and 17 bits, keys only and with payloads, equal the
     JAX Pallas passes (interpret mode) at chunk_rows=8.  Bad shapes and a

@@ -201,7 +201,7 @@ def test_multiplicity_guard_falls_back(algo, tier):
     assert sums == (want[1] % 2**32, want[2] % 2**32)
 
 
-def test_fourteen_bit_count_span_raises_slice_2():
+def test_fourteen_bit_count_span_takes_cuda_prho():
     """A key span in (2^27, 2^28] plans 14 count-partition bits, which the
     port once refused: run_join("PRHO") now takes cuda_prho there and
     returns ref_join's count and checksums."""
