@@ -27,7 +27,8 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    materialization at the count geometry of [1, 16M] (R payloads equal to
    PAD kept as pairs) and the gathered probe at the JAX default geometry
    (12 low bits) over a duplicate-heavy R, then with one bucket of R_CAP + 1
-   keys, which must report overflow;
+   keys, which must report overflow, then with buckets of R_CAP, 12,000 and
+   3,000 keys (every capacity class of its hash table);
    integer outputs must match bit for bit;
 4. the PRO path: run_join("PRO") on 16M ⋈ 128M uniform at q=1 and q=0.01;
 4b. workload B (128M ⋈ 128M, q=1, payloads on the card): run_join for PRHO,
@@ -37,7 +38,9 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
 4c. PRO over a non-unique build (16M ⋈ 128M, --non-unique generators): the
    tier must be cuda_prho, count and checksums those of the ht tier;
 4d. two-pass PRO 16M ⋈ 128M at q = 1, RadixConfig(passes=2,
-   num_radix_bits=12): the two-pass plan (6 + 6 bits), count 128,000,000;
+   num_radix_bits=12): the two-pass plan (6 + 6 bits), count 128,000,000
+   (and in phase 5 one line of pass 2's ms and ns a key at b2 = 3, 6 and
+   10 over its S, each equal to the twin);
 4e. BPRO 16M ⋈ 128M at q = 0.01 with a blocked filter (k = 1, m = 2^27,
    B = 512): one 10-bit hash pass, exact count, S-tuples after filter
    equal to the plain prune's on the card;
@@ -55,7 +58,8 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    the card; then one line of the table probe's phase time at 13 (4b) to
    17 bits (4j) and materialize's at q = 1 and 0.01;
 4i. radix_join_count (the general radix count join: 12 low bits, the
-   gathered probe) over 4's q = 1 relations: 128,000,000, no overflow;
+   gathered probe) over 4's q = 1 relations: 128,000,000, no overflow; one
+   line of the probe's capacity class and CTAs an SM at its largest bucket;
 4j. workload B's relations (4b's) under PRHO with
    RadixConfig(num_radix_bits=b) for b = 14..17, past the port's former
    13-bit single-pass limit: tier cuda_prho, 4b's count and checksums; then
@@ -91,6 +95,7 @@ FLAG_R_SIZE = 128_000_000     # the bloom flagship: 128M ⋈ 1.024B
 FLAG_S_SIZE = 1_024_000_000
 REF_SURVIVOR_PCT = 12.14      # its S-tuples after filter (BASELINE.md:43)
 WIDE_BITS = (14, 15, 16, 17)   # 4j: workload B past the former 13-bit limit
+PASS2_WIDTHS = (3, 6, 10)     # pass 2's cost a key over 4d's S
 PART_WIDTHS = (6, 7, 8, 9, 10, 12, 13, 14, 17)   # the partition's cost a key
 PAD_KEY = -2**31
 SRC = "hwbloomradixjoin_tpu_torch/csrc/"
@@ -135,12 +140,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 # A crc32c is 4 table lookups and 12 shifts, masks and xors; the hash
 # partition needs one a key (its kernel computes it once), hash-mode pass 2
-# takes one in its histogram and one in its scatter; the bloom probe one crc32c, one crapwow (2 products, 2 high
-# products, 6 more) and 8 operations a probe position at k = 1.  The
-# gathered probe's function, a per-bucket count of equal keys, needs no more
-# than a shared-memory hash insert of each R key and a hash probe of each S
-# key (a product, a shift, a load, a compare, an add and a loop step),
-# whatever the kernel's own sort and binary searches spend.
+# takes one in its histogram and one in its scatter; the bloom probe one
+# crc32c, one crapwow (2 products, 2 high products, 6 more) and 8 operations
+# a probe position at k = 1.  The gathered probe's function, a per-bucket
+# count of equal keys, needs no more than a shared-memory hash insert of
+# each R key and a hash probe of each S key (a product, a shift, a load, a
+# compare, an add and a loop step).
 OPS_PER_ELEM = {"partition": 14, "compact": 3, "bitmap_build": 7,
                 "bitmap_probe": 9, "partition_kv": 14, "table_build": 8,
                 "table_probe": 10, "partition_hash": 14 + 16,
@@ -456,8 +461,11 @@ def compare_new_kernels(dev, rng, err) -> None:
                          edge_stream(rng, n // 2, -R_SIZE // 8,
                                      R_SIZE // 8)[0]])
     hot = np.arange(X.R_CAP + 1, dtype=np.int64).astype(np.int32) * 4096
+    # buckets 0-2 of R_CAP, 12,000 and 3,000 keys: every capacity class
+    classes = np.concatenate([rk[rk % 4096 > 2], hot[:X.R_CAP],
+                              hot[:12_000] + 1, hot[:3_000] + 2])
     results = []
-    for r_keys in (rk, np.concatenate([rk[rk % 4096 != 0], hot])):
+    for r_keys in (rk, np.concatenate([rk[rk % 4096 != 0], hot]), classes):
         parts = []
         for keys in (r_keys, sk):
             parts += X.partition_pass(X._chunk_pad(keys, n, dev), ggeom)
@@ -465,14 +473,15 @@ def compare_new_kernels(dev, rng, err) -> None:
         record(err, "gathered_probe", got,
                X.gathered_probe_count_plain(*parts, ggeom))
         results.append(got.tolist())
-    truth = int(native_count(rk, sk))
-    if results[0] != [truth, 0] or results[1][1] != 1:
-        raise AssertionError(f"gathered probe {results}, want [{truth}, 0] "
-                             "and an overflow")
+    truth = [int(native_count(rk, sk)), int(native_count(classes, sk))]
+    if results[0] != [truth[0], 0] or results[1][1] != 1 \
+            or results[2] != [truth[1], 0]:
+        raise AssertionError(f"gathered probe {results}, want [{truth[0]}, "
+                             f"0], an overflow and [{truth[1]}, 0]")
     print(f"kernel vs twin: bit-exact dense count, materialize at count "
           f"geometry {(pb, shift, slr)} ({n_pairs} pairs), gathered probe "
-          f"{results[0]} and with a bucket of R_CAP + 1 keys {results[1]}",
-          flush=True)
+          f"{results[0]}, with a bucket of R_CAP + 1 keys {results[1]}, "
+          f"with buckets of every capacity class {results[2]}", flush=True)
 
 
 def native_count(rk, sk) -> int:
@@ -769,7 +778,31 @@ def run_radix_count(R, S, kind, launches):
           f"total={total / 1e3:.4f}ms ns/S-tuple={total * 1e3 / S_SIZE:.5f} "
           + " ".join(f"{k}={v / 1e3:.4f}ms" for k, v in phases.items())
           + f" launches={ran}", flush=True)
+    gathered_probe_class(parts[1], geom)
     return parts
+
+
+def gathered_probe_class(r_starts, geom) -> None:
+    """One line: the capacity class the gathered probe gives 4i's largest R
+    bucket, its table's slots and its CTAs an SM on this card."""
+    import ctypes
+    import torch
+    from hwbloomradixjoin_tpu_torch.kernels import _build
+    from hwbloomradixjoin_tpu_torch.ops import radix as X
+
+    F = 1 << geom.part_bits
+    st = r_starts.reshape(-1, geom.cat_rows * 128)[:, :F + 1].long()
+    sizes = (st[:, 1:] - st[:, :-1]).sum(0)
+    slots, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(r_starts.device):
+        k = _build.lib().hbrj_gathered_probe_class(
+            int(sizes.max()), X.R_CAP, ctypes.byref(slots),
+            ctypes.byref(per_sm))
+    if k < 0:
+        raise AssertionError(f"gathered probe class query gave {k}")
+    print(f"gathered probe at 4i: R buckets of {int(sizes.min())} to "
+          f"{int(sizes.max())} keys, class {k}: {slots.value} table slots "
+          f"({slots.value * 8} bytes), {per_sm.value} CTAs an SM", flush=True)
 
 
 def plain_reference(algo, R, S, label):
@@ -872,6 +905,29 @@ def partition_widths(dev, keys, pays) -> None:
         cells.append(f"{bits} bits {k_ms:.4f} ms {k_ms * 1e6 / n:.5f} ns/key"
                      f" (kv {kv_ms:.4f} ms {kv_ms * 1e6 / n:.5f} ns/key)")
     print(f"partition widths over {n} keys: " + "; ".join(cells), flush=True)
+
+
+def pass2_widths(dev, two_pass, err) -> None:
+    """One line: pass 2's ms and ns a key in range mode over 4d's S (its
+    pass-1 output, b1 = 6) at each b2 of PASS2_WIDTHS, each output equal to
+    the twin's."""
+    from hwbloomradixjoin_tpu_torch.ops import multipass as M
+    from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
+
+    s1 = two_pass.s_partition()
+    g = two_pass.pass2
+    n = s1[0].numel()
+    cells = []
+    for b2 in PASS2_WIDTHS:
+        geom = M.plan_pass2(*s1, g.b1, b2, g.chunk_rows, M.MAX_RANGE_CHUNKS,
+                            lo=g.lo, hi=g.hi, shift1=g.shift1,
+                            shift2=g.shift1 - b2)
+        ms = time_usec(lambda: M.pass2_partition(*s1, geom), dev) / 1e3
+        record(err, "pass2_partition", M.pass2_partition(*s1, geom),
+               M.pass2_partition_plain(*s1, geom))
+        cells.append(f"b2={b2} {ms:.4f} ms {ms * 1e6 / n:.5f} ns/key")
+    print(f"pass 2 widths (range mode, b1={g.b1}, {n} keys of 4d's S): "
+          + "; ".join(cells), flush=True)
 
 
 def run_nonunique(dev, kind, launches):
@@ -1128,6 +1184,7 @@ def main():
 
     times = time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in,
                          mat_plan, gp_parts, err)
+    pass2_widths(dev, two_pass, err)
     done("5 (kernel times)", t0)
     rows = [{"name": name, "route": route, "source": source,
              "replaces": replaces, "launches": launches[name],

@@ -34,10 +34,11 @@
 //     histograms in (digit, tile) order, so tile order is input order (a
 //     separate scan rather than a decoupled look-back: no CTA waits on
 //     another, and one sweep reads the keys twice either way, once for the
-//     chunk's counts); tile_scatter ranks the tile stably (per-warp ranks
-//     from one __ballot_sync a digit bit, which issues fewer instructions
-//     here than __match_any_sync, a per-digit sum over the warps and a block
-//     scan), stages it in shared memory in digit order beside each key's
+//     chunk's counts); tile_scatter ranks the tile stably (tile_rank.cuh,
+//     shared with pass 2 of multipass.cu: per-warp ranks from one
+//     __ballot_sync a digit bit, which issues fewer instructions here than
+//     __match_any_sync, a per-digit sum over the warps and a block scan),
+//     stages it in shared memory in digit order beside each key's
 //     slot, and writes it out with consecutive threads on consecutive slots
 //     of one digit's run, so runs leave as whole sectors;
 //   * up to kOneSweepMaxBits bits (at most 257 categories with the pad
@@ -69,17 +70,18 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tile_rank.cuh"
 
 namespace {
 
+using hbrj::kTile;
+using hbrj::kTileItems;
+using hbrj::kTileThreads;
+using hbrj::kTileWarps;
+using hbrj::kWarp;
+using hbrj::kWarpKeys;
+
 constexpr int kPadKey = INT32_MIN;
-constexpr int kWarp = 32;
-constexpr int kTileThreads = 512;
-constexpr int kTileWarps = kTileThreads / kWarp;
-constexpr int kTileItems = 8;                       // keys a thread
-constexpr int kTile = kTileThreads * kTileItems;    // 4,096 keys a CTA tile
-constexpr int kWarpKeys = kWarp * kTileItems;       // a warp's contiguous share
-constexpr int kScatterBlocks = 3;                   // tile_scatter CTAs an SM
 constexpr int kOneSweepMaxBits = 8;   // widest fan-out sorted in one sweep
 constexpr int kDigitBits = 8;         // widest digit of the passes past it
 constexpr int kMaxDigits = (1 << 8) + 1;   // 2^8 buckets + the pad category
@@ -125,20 +127,6 @@ struct Pass {
 
 __device__ __forceinline__ int digit_of(int cat, const Pass& s) {
   return (int)(((unsigned)cat >> s.dshift) & s.dmask);
-}
-
-// The lanes of the warp whose label equals this lane's (labels below
-// 2^NBITS): one ballot a label bit, unrolled; fewer instructions than
-// __match_any_sync on this card.
-template <int NBITS>
-__device__ __forceinline__ unsigned match_label(int label) {
-  unsigned peers = 0xffffffffu;
-#pragma unroll
-  for (int b = 0; b < NBITS; ++b) {
-    const unsigned ones = __ballot_sync(0xffffffffu, label & (1 << b));
-    peers &= (label & (1 << b)) ? ones : ~ones;
-  }
-  return peers;
 }
 
 // Bits of the largest digit of a pass.
@@ -235,16 +223,14 @@ chunk_scan(int* __restrict__ hist, int* __restrict__ starts, int ndigits, int nt
     st[j] = j < ndigits ? h[(long long)j * ntiles] : chunk_elems;
 }
 
-// Stable scatter of one tile: per-warp ranks, a block scan of the per-digit
-// totals, the tile staged in shared memory in digit order beside each key's
-// slot in the chunk, then written out with consecutive threads on
-// consecutive slots of one digit's run.  NBITS: bits of the largest digit.
+// Stable scatter of one tile: the tile ranked by digit (tile_rank.cuh's
+// steps), staged in shared memory in digit order beside each key's slot in
+// the chunk, then written out with consecutive threads on consecutive slots
+// of one digit's run.  NBITS: bits of the largest digit.
 template <int NBITS>
-__global__ void __launch_bounds__(kTileThreads, kScatterBlocks)
+__global__ void __launch_bounds__(kTileThreads, hbrj::kScatterBlocks)
 tile_scatter(Pass s, const int* __restrict__ offs, int chunk_elems, int ntiles,
              CatParams p) {
-  using Scan = cub::BlockScan<int, kTileThreads>;
-  __shared__ typename Scan::TempStorage scan_tmp;
   extern __shared__ int smem[];
   const int D = s.ndigits;
   int* wcnt = smem;                               // [kTileWarps][D]
@@ -256,10 +242,10 @@ tile_scatter(Pass s, const int* __restrict__ offs, int chunk_elems, int ntiles,
   int* sslot = spay + (s.pays ? kTile : 0);
   const int c = blockIdx.x / ntiles, t = blockIdx.x % ntiles;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  for (int i = threadIdx.x; i < kTileWarps * D; i += kTileThreads) wcnt[i] = 0;
+  hbrj::clear_counts(wcnt, D);
   // digit threadIdx.x's offset in the chunk, fetched ahead of the keys
-  const int off = threadIdx.x < D ? __ldg(offs + ((long long)c * D + threadIdx.x) * ntiles + t)
-                                  : 0;
+  int off[1] = {threadIdx.x < D ? __ldg(offs + ((long long)c * D + threadIdx.x) * ntiles + t)
+                                : 0};
   const long long base = (long long)c * chunk_elems + (long long)t * kTile;
   const int nvalid = min(kTile, chunk_elems - t * kTile);
   int key[kTileItems], pay[kTileItems], cat[kTileItems], rank[kTileItems];
@@ -279,36 +265,14 @@ tile_scatter(Pass s, const int* __restrict__ offs, int chunk_elems, int ntiles,
   }
   __syncthreads();
   int* cnt = wcnt + warp * D;
-  const unsigned earlier = (1u << lane) - 1u;
 #pragma unroll
   for (int j = 0; j < kTileItems; ++j) {
     rank[j] = 0;
     if (cat[j] < 0) continue;
-    const int d = digit_of(cat[j], s);
-    const unsigned peers = match_label<NBITS>(d);
-    rank[j] = cnt[d] + __popc(peers & earlier);
-    __syncwarp();
-    if (peers >> lane == 1u) cnt[d] = rank[j] + 1;   // the group's last lane
-    __syncwarp();
+    rank[j] = hbrj::warp_rank<NBITS>(digit_of(cat[j], s), cnt);
   }
   __syncthreads();
-  // digit d: its total over the warps, its start in the tile (block scan),
-  // each warp's base inside its run, and the shift to its chunk offset
-  const int d = threadIdx.x;
-  int total = 0;
-  if (d < D)
-    for (int w = 0; w < kTileWarps; ++w) total += wcnt[w * D + d];
-  int tstart;
-  Scan(scan_tmp).ExclusiveSum(total, tstart);
-  if (d < D) {
-    int run = tstart;
-    for (int w = 0; w < kTileWarps; ++w) {
-      const int v = wcnt[w * D + d];
-      wcnt[w * D + d] = run;
-      run += v;
-    }
-    gdelta[d] = off - tstart;
-  }
+  hbrj::scan_digits<1, false>(wcnt, D, D, off, gdelta);
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < kTileItems; ++j) {

@@ -66,11 +66,13 @@ _SIGNATURES = {
                          _vp, _i, _i, _i, _i, _vp],
     "hbrj_dense_count": [_vp, _vp, _ll, _vp, _i, _i, _vp],
     "hbrj_gathered_probe": [_vp, _vp, _ll, _vp, _vp, _ll, _i, _i, _i, _i, _vp,
-                            _vp],
+                            _vp, _vp],
 }
 
 # Host-side queries: name -> (argument types, result type); no stream.
-_QUERIES = {"hbrj_partition_scratch": ([_ll, _i, _i, _i, _i, _i], _ll)}
+_QUERIES = {"hbrj_partition_scratch": ([_ll, _i, _i, _i, _i, _i], _ll),
+            "hbrj_gathered_probe_scratch": ([_i, _i], _ll),
+            "hbrj_gathered_probe_class": ([_ll, _i, _vp, _vp], _i)}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -43,6 +43,8 @@ from hwbloomradixjoin_tpu_torch.types import PAD_KEY
 # kernel reads each run in place.
 GATHER_BUDGET_ROWS = 8 * 4096
 MAX_RANGE_CHUNKS = 512          # range-mode plans (multipass.py:260)
+# Widest pass 2 of the kernel: b2 = bits // 2 of the planners' 20 bits.
+MAX_PASS2_BITS = 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +147,9 @@ def pass2_partition(s_part1: torch.Tensor, starts1: torch.Tensor,
     if s_part1.device.type == "cpu":
         return pass2_partition_plain(s_part1, starts1, geom)
     _build.check_cuda(s_part1, starts1)
+    if geom.b2 > MAX_PASS2_BITS:
+        raise ValueError(f"pass 2 of {geom.b2} bits: the kernel takes at most "
+                         f"{MAX_PASS2_BITS}")
     F1, F2 = 1 << geom.b1, 1 << geom.b2
     dev = s_part1.device
     out = torch.empty((F1 * geom.cap_rows, LANES), dtype=torch.int32,

@@ -38,10 +38,10 @@ from hwbloomradixjoin_tpu_torch.ops import hashes
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY
 
 LANES = 128
-# The gathered probe stages one bucket's R keys in shared memory: the JAX
-# package's default R_SEGS * SEG_ROWS * 128 = 40,960 keys, so every input the
-# JAX probe takes fits (160 KiB of a block's 227 KiB, beside the kernel's own
-# tile arrays and cub scratch, 16.5 KiB).
+# The most R keys a bucket of the gathered probe may hold: the JAX package's
+# default R_SEGS * SEG_ROWS * 128 = 40,960, so the port probes every input
+# the JAX probe takes (the kernel sizes each bucket's hash table to the
+# bucket, not to this cap).
 R_CAP = 40 * 8 * LANES
 
 
@@ -293,7 +293,8 @@ def gathered_probe_count(r_part: torch.Tensor, r_starts: torch.Tensor,
     Replaces the Pallas gathered_probe_count (radix.py:657); the kernel reads
     each bucket's runs through the starts tables, so the TPU's gather
     descriptors (build_gather_descriptors, group_descriptors) have no
-    counterpart.
+    counterpart.  It chooses each bucket's table size on the card: no host
+    read.
     """
     _check_probe_geom(geom)
     if s_part.device.type == "cpu":
@@ -302,13 +303,16 @@ def gathered_probe_count(r_part: torch.Tensor, r_starts: torch.Tensor,
     _build.check_cuda(r_part, r_starts, s_part, s_starts)
     chunk = geom.chunk_rows * LANES
     out = torch.empty(2, dtype=torch.int64, device=s_part.device)
+    scratch = torch.empty(
+        _build.lib().hbrj_gathered_probe_scratch(geom.part_bits, R_CAP),
+        dtype=torch.int32, device=s_part.device)
     _build.launch("gathered_probe", "hbrj_gathered_probe", s_part.device,
                   r_part.data_ptr(), r_starts.data_ptr(),
                   _nchunks(r_part.reshape(-1), geom.chunk_rows),
                   s_part.data_ptr(), s_starts.data_ptr(),
                   _nchunks(s_part.reshape(-1), geom.chunk_rows), chunk,
                   geom.cat_rows * LANES, geom.part_bits, R_CAP,
-                  out.data_ptr())
+                  scratch.data_ptr(), out.data_ptr())
     return out
 
 

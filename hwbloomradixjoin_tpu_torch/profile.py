@@ -3,6 +3,7 @@
     python -m hwbloomradixjoin_tpu_torch.profile PRHO --r 128000000 --s 128000000
     python -m hwbloomradixjoin_tpu_torch.profile PRO --r 16000000 --non-unique
     python -m hwbloomradixjoin_tpu_torch.profile PRO --r 16000000 --passes 2 --bits 12
+    python -m hwbloomradixjoin_tpu_torch.profile PRO --r 16000000 --radix-count
     python -m hwbloomradixjoin_tpu_torch.profile PRO --r 128000000 \
         --s 1024000000 --q 0.01 --bloom blocked --m 1073741824 --k 1 --B 512
 
@@ -10,7 +11,9 @@ Generates the workload as ``chip_smoke.py`` does (uniform PK/FK at q, or the
 non-unique generators; S's keys only where the tier reads no S payload),
 plans the join with the planner of the tier ``run_join`` picks for it
 (``allow_dense=False``; with ``--bloom`` behind the filter, with
-``--passes 2`` two-pass where the planner accepts), warms the whole join,
+``--passes 2`` two-pass where the planner accepts; with ``--radix-count``
+``radix_join_count``'s kernels instead, both partitions and the gathered
+probe, at its 12 low bits), warms the whole join,
 then traces JOINS back-to-back whole joins with ``torch.profiler``.  Prints
 one JSON line: the card, the tier, the plan, the device time of each kernel
 per join (ms, summed by kernel name; plain torch work is summed under the
@@ -52,9 +55,26 @@ def _short(name: str) -> str:
     return re.sub(r"<.*", "", base).split("::")[-1].split()[-1]
 
 
+class _RadixCount:
+    """radix_join_count's kernels as a plan: both partitions and the
+    gathered probe, the result left on the card."""
+
+    def __init__(self, R, S, dev):
+        from hwbloomradixjoin_tpu_torch.ops import radix as X
+        self.X, self.geom = X, X.RadixGeom()
+        chunk = self.geom.chunk_rows * 128
+        self.r_in = X._chunk_pad(R.key, chunk, dev)
+        self.s_in = X._chunk_pad(S.key, chunk, dev)
+
+    def full(self):
+        X, geom = self.X, self.geom
+        return X.gathered_probe_count(*X.partition_pass(self.r_in, geom),
+                                      *X.partition_pass(self.s_in, geom), geom)
+
+
 def profile_join(algo: str, r_size: int, s_size: int, selectivity: float,
                  nonunique: bool, bloom_args=None, passes: int = 1,
-                 bits=None) -> dict:
+                 bits=None, radix_count: bool = False) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -78,7 +98,10 @@ def profile_join(algo: str, r_size: int, s_size: int, selectivity: float,
     else:
         S = Relation.from_numpy(sk, sp, device=dev)
     del rk, rp, sk, sp
-    plan, tier = _plan(algo, R, S, cfg, bloom_args)
+    if radix_count:
+        plan, tier = _RadixCount(R, S, dev), "radix_join_count"
+    else:
+        plan, tier = _plan(algo, R, S, cfg, bloom_args)
     for _ in range(3):
         plan.full()
     torch.cuda.synchronize()
@@ -137,6 +160,7 @@ def main():
     ap.add_argument("--m", type=int, default=256 << 20)
     ap.add_argument("--k", type=int, default=8)
     ap.add_argument("--B", type=int, default=1024)
+    ap.add_argument("--radix-count", action="store_true")
     a = ap.parse_args()
     bloom_args = None
     if a.bloom is not None:
@@ -144,7 +168,8 @@ def main():
         bloom_args = BloomArgs(variant=BloomVariant(a.bloom), m=a.m, k=a.k,
                                B=a.B)
     print(json.dumps(profile_join(a.algo, a.r, a.s, a.q, a.non_unique,
-                                  bloom_args, a.passes, a.bits)))
+                                  bloom_args, a.passes, a.bits,
+                                  a.radix_count)))
 
 
 if __name__ == "__main__":

@@ -9,15 +9,19 @@ and deep bitmap slices, payloads moved with the keys, count tables from
 empty chunks and from every key in one slot (every slice size, a key 64,999
 times, no starts refused), probes with and without S
 payloads, the hash-mode partition, pass 2 in both modes (all PAD, one chunk,
-empty buckets), the bloom probe (k = 1..8, B = 32 to 2^17, no survivors),
+empty buckets, b2 = 1, 2, 3, 6 and 10, spans of several chunks whose windows
+do not divide into tiles, runs of 0 and 1 keys, regions truncated at their
+capacity), the bloom probe (k = 1..8, B = 32 to 2^17, no survivors),
 the prune past the TPU's limits (2,049 chunks, a hot key), the dense count
 (odd lengths, wrapping sums, all PAD), materialization (payloads at -2^31,
 PAD, empty buckets), the probe and materialization over bucket ranges
 (every slice size, 1 to 16 buckets a CTA, one bucket holding all of S, a pad
 category covering most of S over a sentinel-filled allocator, no starts
-refused), the gathered probe (duplicates, empty buckets, a bucket
-at and one past its capacity), the default config's dense tier and the
-launch counters.  This file imports no jax, so on a machine without it run:
+refused), the gathered probe (duplicates, empty buckets, a largest bucket
+of 1 key and of one below, at and one past its capacity, every capacity
+class of its hash table in one call, runs of 0 and 1 keys, the radix count
+geometry at 2M x 8M keys), the default config's dense tier and the launch
+counters.  This file imports no jax, so on a machine without it run:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -572,23 +576,68 @@ def _pass2_case(cuda, mode, chunk_rows, nchunks, b1, b2, keys):
     return got
 
 
+def _pass2_keys(rng, mode, n):
+    if mode == "hash":
+        return _hash_keys(rng, n)
+    k = rng.integers(1, 16_000_001, n)
+    u = rng.random(n)
+    k[u < 0.2] = rng.integers(16_000_001, 1 << 24, int((u < 0.2).sum()))
+    k[u < 0.05] = rng.integers(-2**31 + 1, 1, int((u < 0.05).sum()))
+    k[u > 0.95] = PAD
+    return torch.from_numpy(k.astype(np.int32))
+
+
 @pytest.mark.parametrize("mode", ["range", "hash"])
 @pytest.mark.parametrize("chunk_rows,nchunks,b1,b2", [
     (8, 1, 1, 1), (64, 3, 3, 3), (4096, 2, 6, 6), (4096, 2, 10, 3),
-    (256, 2, 2, 10)])
+    (256, 2, 2, 10),
+    # spans of several chunks whose windows (72 rows) do not divide into
+    # 4,096-key tiles, a last span of one chunk; b2 = 10 over 5 chunks;
+    # b2 = 2; runs of 0 and 1 keys (1,024-key chunks, 1,024 buckets)
+    (4096, 9, 6, 6), (1024, 5, 2, 10), (512, 3, 4, 2), (8, 40, 10, 3)])
 def test_pass2_kernel_matches_twin(cuda, mode, chunk_rows, nchunks, b1, b2):
     rng = np.random.default_rng(b1 * 16 + b2 + chunk_rows)
-    n = nchunks * chunk_rows * 128
-    if mode == "hash":
-        keys = _hash_keys(rng, n)
-    else:
-        k = rng.integers(1, 16_000_001, n)
-        u = rng.random(n)
-        k[u < 0.2] = rng.integers(16_000_001, 1 << 24, int((u < 0.2).sum()))
-        k[u < 0.05] = rng.integers(-2**31 + 1, 1, int((u < 0.05).sum()))
-        k[u > 0.95] = PAD
-        keys = torch.from_numpy(k.astype(np.int32))
+    keys = _pass2_keys(rng, mode, nchunks * chunk_rows * 128)
     _pass2_case(cuda, mode, chunk_rows, nchunks, b1, b2, keys)
+
+
+@pytest.mark.parametrize("mode", ["range", "hash"])
+@pytest.mark.parametrize("b1,b2", [(2, 3), (3, 10)])
+def test_pass2_kernel_truncates_at_the_region_capacity(cuda, mode, b1, b2):
+    """A hand-made geometry whose regions hold fewer rows than their live
+    keys: each region keeps its first cap_elems keys in sub-category order,
+    starts2 still counts every live key."""
+    chunk_rows, nchunks = 64, 6
+    rng = np.random.default_rng(b1 + b2)
+    keys = _pass2_keys(rng, mode, nchunks * chunk_rows * 128).to(cuda)
+    if mode == "hash":
+        kw = p2kw = dict(hash_seed=42, hash_bits=b1 + b2 + 4)
+    else:
+        shift = 24 - b1 - b2
+        kw = dict(lo=1, hi=16_000_000, shift=shift + b2)
+        p2kw = dict(lo=1, hi=16_000_000, shift1=shift + b2, shift2=shift)
+    s1, st1 = X.partition_pass(keys, X.RadixGeom(chunk_rows=chunk_rows,
+                                                 part_bits=b1, **kw))
+    planned = M.plan_pass2(s1, st1, b1, b2, chunk_rows, None, **p2kw)
+    live = nchunks * chunk_rows * 128 // (1 << b1)
+    geom = M.Pass2Geom(**{**planned.__dict__, "cap_rows": live // 3 // 128})
+    got = M.pass2_partition(s1, st1, geom)
+    want = M.pass2_partition_plain(s1, st1, geom)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    F2 = 1 << b2
+    assert int(got[1].view(1 << b1, -1)[:, F2].min()) > geom.cap_rows * 128
+
+
+def test_pass2_kernel_all_pad_over_many_spans(cuda):
+    """An all-PAD stream over more chunks than a span takes: every region
+    PAD, starts2 0 up to F2, both modes."""
+    n = 70 * 8 * 128
+    for mode in ("range", "hash"):
+        out, starts2 = _pass2_case(cuda, mode, 8, 70, 4, 3,
+                                   torch.full((n,), PAD, dtype=torch.int32))
+        assert (out == PAD).all()
+        assert (starts2.view(16, -1)[:, :9] == 0).all()
 
 
 @pytest.mark.parametrize("mode", ["range", "hash"])
@@ -814,7 +863,7 @@ def test_gathered_probe_kernel_all_pad_and_empty_buckets(cuda):
     assert _gathered_case(cuda, rk, pads, geom) == [0, 0]
 
 
-@pytest.mark.parametrize("extra", [0, 1])
+@pytest.mark.parametrize("extra", [0, 1, -1])
 def test_gathered_probe_kernel_at_the_capacity(cuda, extra):
     """Bucket 0 holds exactly R_CAP R keys (probed) or one more (overflow:
     not probed, the flag set); the other buckets are counted either way."""
@@ -828,10 +877,69 @@ def test_gathered_probe_kernel_at_the_capacity(cuda, extra):
     count, ovf = _gathered_case(cuda, rk, sk, geom)
     mult = np.bincount(hot % (20_000 * 4096) // 4096)
     hot_pairs = int(mult[hot[:1000] // 4096].sum())
-    assert ovf == extra
-    assert count == len(cold[::2]) + (0 if extra else hot_pairs)
+    over = extra > 0
+    assert ovf == over
+    assert count == len(cold[::2]) + (0 if over else hot_pairs)
     assert X.radix_join_count(rk, sk, device=cuda) == \
-        ((0, True) if extra else (count, False))
+        ((0, True) if over else (count, False))
+
+
+def _ref_count(rk, sk):
+    from hwbloomradixjoin_tpu_torch.data import native
+    return native.ref_join(rk, np.zeros_like(rk), sk, np.zeros_like(sk))[0]
+
+
+def test_gathered_probe_kernel_buckets_of_one_key(cuda):
+    """The largest bucket holds one R key (the smallest class), S repeats
+    them and misses."""
+    geom = X.RadixGeom()
+    rk = np.arange(-2000, 2000, dtype=np.int32) * 4099
+    sk = np.concatenate([np.repeat(rk[::3], 3), rk + 1])
+    count, ovf = _gathered_case(cuda, rk, sk, geom)
+    assert (count, ovf) == (3 * len(rk[::3]), 0)
+
+
+def test_gathered_probe_kernel_every_capacity_class(cuda):
+    """One hot bucket among small ones: buckets of 30,000 (the device-memory
+    table), 12,000, 3,000 and about 100 R keys, duplicates on both sides,
+    all in one call."""
+    geom = X.RadixGeom()
+    rng = np.random.default_rng(7)
+    parts = [rng.integers(0, 1 << 19, n) * 4096 + b
+             for b, n in ((0, 30_000), (1, 12_000), (2, 3_000))]
+    small = rng.integers(0, 1 << 19, 400_000) * 4096 \
+        + rng.integers(3, 4096, 400_000)
+    rk = np.concatenate(parts + [small]).astype(np.int32)
+    sk = np.concatenate([rng.choice(rk, 300_000),
+                         rng.integers(-2**31 + 1, 2**31, 100_000)])
+    sk = sk.astype(np.int32)
+    count, ovf = _gathered_case(cuda, rk, sk, geom)
+    assert ovf == 0 and count == _ref_count(rk, sk)
+    sizes = np.bincount(rk & 4095, minlength=4096)
+    assert sizes.max() == 30_000 and sizes[3:].max() < 1433
+
+
+def test_gathered_probe_kernel_runs_of_zero_and_one_key(cuda):
+    """1,024-key chunks over 4,096 buckets: most runs hold 0 or 1 keys."""
+    geom = X.RadixGeom(chunk_rows=8, part_bits=12)
+    rng = np.random.default_rng(8)
+    rk = rng.integers(-10**6, 10**6, 6_000).astype(np.int32)
+    sk = np.concatenate([rng.choice(rk, 5_000),
+                         rng.integers(-10**6, 10**6, 5_000)]).astype(np.int32)
+    count, ovf = _gathered_case(cuda, rk, sk, geom)
+    assert ovf == 0 and count == _ref_count(rk, sk)
+
+
+def test_gathered_probe_kernel_at_the_radix_count_geometry(cuda):
+    """radix_join_count's geometry (1,024-row chunks, 12 bits) at 2M R keys
+    (about 4 copies of each key) and 8M S keys, against ref_join."""
+    rng = np.random.default_rng(9)
+    rk = rng.integers(0, 500_000, 2_000_000).astype(np.int32)
+    sk = np.concatenate([rng.choice(rk, 6_000_000),
+                         rng.integers(-2**31 + 1, 2**31, 2_000_000)])
+    sk = sk.astype(np.int32)
+    count, ovf = _gathered_case(cuda, rk, sk, X.RadixGeom())
+    assert ovf == 0 and count == _ref_count(rk, sk)
 
 
 def test_default_config_takes_the_dense_tier(cuda):
