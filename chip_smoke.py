@@ -15,13 +15,17 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    workload B's count geometry plan_geometry_counts(1, 128_000_000) =
    (13, 14, 128) with
    a non-unique R and an S holding PAD, keys below lo and keys above hi;
+   the bitmap probe walks the S partition's starts (its staged class) and,
+   at 2 bits (512 KiB slices), takes its flat class;
    3d. the bloom kernels: the hash-mode partition at the flagship's pass-1
    geometry (10 of 21 bits), pass 2 in range mode (b1 = b2 = 6 over
-   [1, 16M]) and in hash mode (b1 = 10, b2 = 3), and the bloom probe of
-   the hash regions against an m = 2^30, k = 1, B = 512 filter, over an S
-   holding PAD, negative keys and keys at or above 2^31 - 2^20; the
-   survivors also equal the plain prune's on the card and the reference
-   filter's (native.ref_bloom) on the host;
+   [1, 16M]) and in hash mode (b1 = 10, b2 = 3), the bitmap probe over the
+   range regions, and the bloom probe against an m = 2^30, k = 1, B = 512
+   filter in every class (staged over the hash regions and over pass 1's
+   chunks, flat without starts) and against m = 2^27 over a 10-bit hash
+   partition, over an S holding PAD, negative keys and keys at or above
+   2^31 - 2^20; the survivors also equal the plain prune's on the card and
+   the reference filter's (native.ref_bloom) on the host;
    3e. the dense count (keys at lo - 1 and hi + 1, negative keys, PAD,
    payloads at +-2^31 so the sum wraps, a length with a 3-key tail),
    materialization at the count geometry of [1, 16M] (R payloads equal to
@@ -74,7 +78,9 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    each kernel's output must
    again equal its twin's bit for bit, beside each kernel's bound (bytes
    moved over the card's memory rate, or int32 operations over its int32
-   rate).
+   rate); then one line of the class, split, CTAs and resident CTAs an SM
+   that the bitmap and bloom probes take at PRO q = 1 and q = 0.01, 4d, 4e
+   and the flagship.
 
 Prints, in order: the card line, each phase's results and wall time, a
 {"kernels": [...]} JSON line, and as the last line {"ok": true, "device":
@@ -213,12 +219,7 @@ def compare_kernels(dev, rng, err) -> None:
     n = nchunks * chunk
     rk = rng.choice(np.arange(lo, hi + 1, dtype=np.int32),
                     min(n - 777, (hi - lo + 1) // 2), replace=False)
-    u = rng.random(n)
-    sk = rng.integers(lo, hi + 1, n)
-    sk[u < 0.3] = rng.integers(hi + 1, 2**31 - 1, int((u < 0.3).sum()))
-    sk[u < 0.05] = rng.integers(-2**31 + 1, lo, int((u < 0.05).sum()))
-    sk = sk.astype(np.int32)
-    sk[-1000:] = PAD_KEY
+    sk = pro_stream(rng, n, lo, hi)
     r_in = X._chunk_pad(rk, chunk, dev)
     s_in = torch.from_numpy(sk).to(dev)
     rgeom = X.RadixGeom(chunk_rows=chunk_rows, part_bits=rb, lo=lo, hi=hi,
@@ -237,15 +238,39 @@ def compare_kernels(dev, rng, err) -> None:
     bm = B.bitmap_build(r_part, lo, hi, rb, rshift, rslr)
     record(err, "bitmap_build", bm,
            B.build_bitmap(r_part, lo, hi, rb, rshift, rslr))
-    got = B.bitmap_probe_count(bm, s_part, lo, shift, pb, slr)
-    record(err, "bitmap_probe", got,
-           B.bitmap_probe_count_plain(bm, s_part, lo, shift, pb, slr))
-    truth = int(np.isin(sk[(sk >= lo) & (sk <= hi)], rk).sum())
-    if int(got) != truth:
-        raise AssertionError(f"probe count {int(got)} != numpy {truth}")
+    # the probe's two classes: these 4 chunks are under 8 keys a bitmap
+    # word (the flat class); 16 chunks of the same mix take the staged one
+    sk16 = pro_stream(rng, 16 * chunk, lo, hi)
+    counts = []
+    for keys, staged in ((sk, False), (sk16, True)):
+        part, starts = X.partition_pass(torch.from_numpy(keys).to(dev), sgeom)
+        if (B.probe_split(part, starts, shift, pb) is not None) != staged:
+            raise AssertionError(f"the probe of {len(keys)} keys did not "
+                                 f"take the {'staged' if staged else 'flat'}"
+                                 f" class")
+        got = B.bitmap_probe_count(bm, part, lo, shift, pb, slr, starts)
+        record(err, "bitmap_probe", got,
+               B.bitmap_probe_count_plain(bm, part, lo, shift, pb, slr))
+        truth = int(np.isin(keys[(keys >= lo) & (keys <= hi)], rk).sum())
+        if int(got) != truth:
+            raise AssertionError(f"probe count {int(got)} != numpy {truth}")
+        counts.append(truth)
     print(f"kernel vs twin: bit-exact at geometry probe {(pb, shift, slr)} "
           f"build {(rb, rshift, rslr)}, {nchunks} chunks of {chunk} keys, "
-          f"probe count {truth}", flush=True)
+          f"probe counts {counts} (flat class; staged over 16 chunks)",
+          flush=True)
+
+
+def pro_stream(rng, n, lo, hi) -> np.ndarray:
+    """n S keys for the PRO kernels: in [lo, hi], above hi, below lo, and
+    the last 1,000 PAD."""
+    u = rng.random(n)
+    sk = rng.integers(lo, hi + 1, n)
+    sk[u < 0.3] = rng.integers(hi + 1, 2**31 - 1, int((u < 0.3).sum()))
+    sk[u < 0.05] = rng.integers(-2**31 + 1, lo, int((u < 0.05).sum()))
+    sk = sk.astype(np.int32)
+    sk[-1000:] = PAD_KEY
+    return sk
 
 
 def compare_table_kernels(dev, rng, err) -> None:
@@ -362,8 +387,38 @@ def compare_bloom_kernels(dev, rng, err) -> None:
     s1, st1 = X.partition_pass(s_in, rgeom)
     p2 = M.plan_pass2(s1, st1, rb1, rb2, chunk_rows, M.MAX_RANGE_CHUNKS,
                       lo=1, hi=R_SIZE, shift1=shift + rb2, shift2=shift)
-    record(err, "pass2_partition", M.pass2_partition(s1, st1, p2),
+    ranged = M.pass2_partition(s1, st1, p2)
+    record(err, "pass2_partition", ranged,
            M.pass2_partition_plain(s1, st1, p2))
+    # the bitmap probe over range regions, against a bitmap of every other
+    # in-range S key built by the twin: at 4d's geometry (512-byte live
+    # slices: the flat class), then at 3 + 3 bits over 16 chunks (32 KiB
+    # slices: staged over regions)
+    sk16 = np.concatenate([sk] * 4)
+    for keys, c1, c2, staged in ((sk, rb1, rb2, False), (sk16, 3, 3, True)):
+        bits, sh = c1 + c2, 24 - c1 - c2
+        s1, st1 = X.partition_pass(
+            torch.from_numpy(keys).to(dev),
+            X.RadixGeom(chunk_rows=chunk_rows, part_bits=c1, lo=1, hi=R_SIZE,
+                        shift=sh + c2))
+        g2 = M.plan_pass2(s1, st1, c1, c2, chunk_rows, M.MAX_RANGE_CHUNKS,
+                          lo=1, hi=R_SIZE, shift1=sh + c2, shift2=sh)
+        regs = M.pass2_partition(s1, st1, g2)
+        record(err, "pass2_partition", regs,
+               M.pass2_partition_plain(s1, st1, g2))
+        live = keys[(keys >= 1) & (keys <= R_SIZE)]
+        slr = B.plan_geometry(1, R_SIZE, bits)[2]
+        bm = B.build_bitmap(torch.from_numpy(live[::2]).to(dev), 1, R_SIZE,
+                            bits, sh, slr)
+        probe = (bm, regs[0], 1, sh, bits, slr)
+        if (B.probe_split(regs[0], regs[1], sh, bits, c2) is not None) \
+                != staged:
+            raise AssertionError(f"the region probe at {c1} + {c2} bits took "
+                                 f"the wrong class")
+        got = B.bitmap_probe_count(*probe, regs[1], seg_bits=c2)
+        record(err, "bitmap_probe", got, B.bitmap_probe_count_plain(*probe))
+        if int(got) != int(np.isin(live, live[::2]).sum()):
+            raise AssertionError(f"region probe count {int(got)}")
     # pass 2, hash mode: the flagship's 10 + 3 bits, as the prune plans it
     s1, st1 = X.partition_pass(s_in, hgeom)
     h2 = M.plan_pass2(s1, st1, b1, part_bits - b1, chunk_rows, None,
@@ -372,9 +427,32 @@ def compare_bloom_kernels(dev, rng, err) -> None:
     record(err, "pass2_partition_hash", regions,
            M.pass2_partition_plain(s1, st1, h2))
     words = bloom.build_bitmap(torch.from_numpy(rk).to(dev), args)
-    pruned = BP.bloom_probe_prune(words, regions[0], args)
-    record(err, "bloom_probe", pruned,
-           BP.bloom_probe_prune_plain(words, regions[0], args))
+    # the bloom probe in every class: staged over the hash regions (the
+    # flagship's), staged over pass 1's chunks (128 KiB slices: a skewed
+    # S's), flat without starts, then staged over 4e's one-pass chunks
+    b2 = part_bits - b1
+    classes = {"regions": (regions[0], dict(starts=regions[1],
+                                            part_bits=part_bits, seg_bits=b2)),
+               "chunks": (s1, dict(starts=st1, part_bits=b1)),
+               "flat": (regions[0], {})}
+    for name, (keys, kw) in classes.items():
+        staged = BP.probe_split(keys.reshape(-1), args, **kw) is not None
+        if staged != (name != "flat"):
+            raise AssertionError(f"bloom probe over {name}: staged {staged}")
+        got = BP.bloom_probe_prune(words, keys, args, **kw)
+        record(err, "bloom_probe", got,
+               BP.bloom_probe_prune_plain(words, keys, args))
+        if name == "regions":
+            pruned = got
+    args27 = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 27, k=1, B=512)
+    g27 = X.RadixGeom(chunk_rows=chunk_rows, part_bits=10,
+                      hash_seed=args27.seed, hash_bits=18)
+    words27 = bloom.build_bitmap(torch.from_numpy(rk).to(dev), args27)
+    h27, st27 = X.partition_pass(s_in, g27)
+    record(err, "bloom_probe",
+           BP.bloom_probe_prune(words27, h27, args27, starts=st27,
+                                part_bits=10),
+           BP.bloom_probe_prune_plain(words27, h27, args27))
     mask, n_plain = bloom_join.bloom_prune(torch.from_numpy(rk).to(dev),
                                            s_in, args)
     want = np.sort(sk[native.ref_bloom("blocked", args.m, args.k, args.B,
@@ -389,8 +467,11 @@ def compare_bloom_kernels(dev, rng, err) -> None:
     print(f"kernel vs twin: bit-exact hash partition {(b1, hash_bits)}, "
           f"pass 2 range ({rb1}+{rb2} bits, c1_rows "
           f"{p2.c1_rows}) and hash ({b1}+{part_bits - b1} bits, c1_rows "
-          f"{h2.c1_rows}), bloom probe m=2^30 k=1 B=512: {len(want)} "
-          f"survivors = plain prune = reference filter", flush=True)
+          f"{h2.c1_rows}), the bitmap probe over range regions (flat, and "
+          f"staged at 3 + 3 bits), bloom "
+          f"probe m=2^30 k=1 B=512 (staged over regions and chunks, flat) "
+          f"and m=2^27 (10 bits): {len(want)} survivors = plain prune = "
+          f"reference filter", flush=True)
 
 
 def edge_stream(rng, n, lo, hi):
@@ -631,10 +712,14 @@ def run_bpro(R, S, kind, launches):
 
 def run_flagship(dev, kind, launches):
     """Phase 4f: BRJ 128M ⋈ 1.024B at q = 0.01, blocked, k = 1, m = 2^30,
-    B = 512: the two-pass prune.  S's keys only are on the card."""
+    B = 512: the two-pass prune.  S's keys only are on the card.  Returns
+    the probes' class cells at the flagship."""
     import torch
-    from hwbloomradixjoin_tpu_torch.config import BloomArgs, BloomVariant
+    from hwbloomradixjoin_tpu_torch.config import (BloomArgs, BloomVariant,
+                                                   EngineConfig)
     from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.models import registry
+    from hwbloomradixjoin_tpu_torch.ops import run_split
     from hwbloomradixjoin_tpu_torch.ops import bitmap_join, bloom, bloom_pallas
     from hwbloomradixjoin_tpu_torch.types import Relation
     from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
@@ -674,6 +759,64 @@ def run_flagship(dev, kind, launches):
           f"{direct / 1e3:.4f} ms over {S.key.numel()} keys, against "
           f"{(st.phases['bloom_partition'] + st.phases['bloom_probe']) / 1e3:.4f}"
           f" ms for the two hash passes and the probe", flush=True)
+    del words
+    plan = registry.plan_kernel_join("cuda_radix", R, S, EngineConfig(
+        allow_dense=False), *registry.key_ranges(R), bloom_args=args)
+    return probe_class_cells("flagship", plan, run_split.card_sms(dev))
+
+
+def probe_class_cells(label, plan, sms) -> list:
+    """The class each probe kernel of a planned join takes (the bloom probe
+    of its prune, if any, and the bitmap probe), its split, CTAs and
+    resident CTAs an SM on this card: one cell each."""
+    import torch
+    from hwbloomradixjoin_tpu_torch.kernels import _build
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+    from hwbloomradixjoin_tpu_torch.ops import bloom_pallas as BP
+    from hwbloomradixjoin_tpu_torch.ops import multipass as M
+
+    def cell(name, split, query, *shape):
+        with torch.cuda.device(0):
+            per_sm = query(0 if split is None else split.nb, *shape)
+        if split is None:
+            return f"{label} {name}: flat, {per_sm} CTAs an SM"
+        return (f"{label} {name}: staged over "
+                f"{'regions' if split.regions else 'chunks'} (nb={split.nb}"
+                f" span={split.span} group={split.group}), {split.ctas} "
+                f"CTAs, {per_sm} an SM")
+
+    cells = []
+    prune = getattr(plan, "prune", None)
+    if prune is not None:
+        # the partition's sizes: pass 1's chunks, or pass 2's regions
+        g, p2 = prune.pgeom, prune.pass2
+        if p2 is None:
+            n, seg_bits, bits = prune.sk_in.numel(), g.part_bits, g.part_bits
+            nstarts = n // (g.chunk_rows * 128) * g.cat_rows * 128
+        else:
+            n = (1 << p2.b1) * p2.cap_rows * 128
+            seg_bits, bits = p2.b2, p2.b1 + p2.b2
+            nstarts = (1 << p2.b1) * p2.cat2_rows * 128
+        keys = torch.empty(n, dtype=torch.int32, device="meta")
+        starts = torch.empty(nstarts, dtype=torch.int32, device="meta")
+        split = BP.probe_split(keys, prune.args, starts, bits, seg_bits, sms)
+        cells.append(cell("bloom_probe", split,
+                          _build.lib().hbrj_bloom_probe_per_sm,
+                          BP.slice_words(prune.args, bits), prune.args.k))
+    join = getattr(plan, "join", plan)
+    m = join._intermediates()
+    if isinstance(join, M.TwoPassPlan):
+        shift = join.shift
+        split = B.probe_split(*m["s2"], shift, join.part_bits, join.pass2.b2,
+                              sms)
+    else:
+        shift = join.sgeom.shift
+        split = B.probe_split(*m["s_part"], shift, join.sgeom.part_bits,
+                              None, sms)
+    cells.append(cell("bitmap_probe", split,
+                      _build.lib().hbrj_bitmap_probe_per_sm,
+                      B.live_words(shift)))
+    return cells
 
 
 def run_dense(R, S, q, kind, launches):
@@ -984,7 +1127,8 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
     m = p1._intermediates()
     g, rg = p1.sgeom, p1.rgeom
     build_args = (m["r_part"], 1, R_SIZE, rg.part_bits, rg.shift, p1.r_sl_rows)
-    probe_args = (m["bitmap"], m["s_part"], 1, g.shift, g.part_bits, p1.sl_rows)
+    s_part, s_starts = m["s_part"]
+    probe_args = (m["bitmap"], s_part, 1, g.shift, g.part_bits, p1.sl_rows)
     compact_args = (p2.sk_in, 1, R_SIZE, g.chunk_rows, p2.cap_rows)
     mb = b_plan._intermediates()
     gb, slr = b_plan.geom, b_plan.slice_rows
@@ -997,7 +1141,7 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
     del keys, live
     s1 = two_pass.s_partition()
     prune = bpro.prune
-    words, hashed = prune.build(), prune.partition()
+    words, (hashed, h_starts) = prune.build(), prune.partition()
     # hash-mode pass 2 at the flagship's geometry (10 + 3 of 21 block bits)
     # over 4e's S, planned as the prune plans it
     flag = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 30, k=1, B=512)
@@ -1031,10 +1175,10 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
                          lambda: B.build_bitmap(*build_args),
                          nbytes(m["r_part"]), m["r_part"].numel()),
         # at q=1 S covers R's whole key range, so it needs every bitmap word
-        "bitmap_probe": (lambda: B.bitmap_probe_count(*probe_args),
+        "bitmap_probe": (lambda: B.bitmap_probe_count(*probe_args, s_starts),
                          lambda: B.bitmap_probe_count_plain(*probe_args),
-                         nbytes(m["s_part"], m["bitmap"]),
-                         m["s_part"].numel()),
+                         nbytes(s_part, s_starts, m["bitmap"]),
+                         s_part.numel()),
         "partition_kv": (
             lambda: X.partition_pass_kv(b_plan.sk_in, b_plan.sp_in, gb),
             lambda: X.partition_pass_kv_plain(b_plan.sk_in, b_plan.sp_in, gb),
@@ -1063,9 +1207,11 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
             lambda: M.pass2_partition_plain(*h1, h2),
             nbytes(*h1), h1[0].numel()),
         "bloom_probe": (
-            lambda: BP.bloom_probe_prune(words, hashed, prune.args),
+            lambda: BP.bloom_probe_prune(words, hashed, prune.args,
+                                         starts=h_starts,
+                                         part_bits=prune.pgeom.part_bits),
             lambda: BP.bloom_probe_prune_plain(words, hashed, prune.args),
-            nbytes(hashed, words), hashed.numel()),
+            nbytes(hashed, h_starts, words), hashed.numel()),
         "dense_count": (lambda: D.dense_count_join(*dense_in, 1, R_SIZE),
                         lambda: D.dense_count_join_plain(*dense_in, 1,
                                                          R_SIZE),
@@ -1109,6 +1255,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from hwbloomradixjoin_tpu_torch.kernels import _build
+    from hwbloomradixjoin_tpu_torch.ops import run_split
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -1178,13 +1325,19 @@ def main():
     t0 = done("4i (radix_join_count)", t0)
     dense_in = (pro[1.0][2].key, pro[1.0][2].payload)
     del pro
-    run_flagship(dev, kind, launches)
+    flag_cells = run_flagship(dev, kind, launches)
     torch.cuda.empty_cache()
     t0 = done("4f (BRJ 128M x 1.024B)", t0)
 
     times = time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in,
                          mat_plan, gp_parts, err)
     pass2_widths(dev, two_pass, err)
+    sms = run_split.card_sms(dev)
+    cells = [c for label, plan in (("PRO q=1", pro_plans[1.0]),
+                                   ("PRO q=0.01", pro_plans[0.01]),
+                                   ("4d", two_pass), ("4e", bpro))
+             for c in probe_class_cells(label, plan, sms)]
+    print("probe classes: " + "; ".join(cells + flag_cells), flush=True)
     done("5 (kernel times)", t0)
     rows = [{"name": name, "route": route, "source": source,
              "replaces": replaces, "launches": launches[name],

@@ -13,13 +13,33 @@
 // h += y; y += i + 1 (mod B).  The filter is m/32 words, bit j of word w
 // being filter bit 32w + j: the JAX package's slice layout read flat.
 //
-// What bounds it here: the key stream (read once, written once) and, per
-// live key, one 32-byte sector of the filter.  The TPU staged each hash
-// bucket's 2^17-bit filter slice in VMEM and tested it with a 128-lane
-// gather ladder, with ownership descriptors so each staged key was emitted
-// once.  Here every key is read once in place: the input is partitioned by
-// the block's top bits, so neighbouring keys probe the same slice and its
-// sectors stay in L1/L2.  Survivors are summed per thread in 64 bits,
+// What bounds it: the key stream, read once and written once, and about
+// 38 integer operations a key at k = 1; the two bounds are about equal.  A
+// flat stream loses to neither: each key reads its filter word through a
+// 32-byte L2 sector, and its crc32c takes 4 dependent lookups into one
+// 256-word table at random banks.  So the staged class walks S through its
+// hash partition's starts (csrc/run_walk.cuh): S is partitioned by the top
+// bits of the block index, so bucket j's keys probe only filter words
+// [j * W, (j + 1) * W), W = m / 32 / 2^part_bits.  A CTA owns a range of
+// buckets and a span of segments (partition chunks, or pass-2 regions whose
+// bucket j of region r is r * F2 + j), stages the range's filter slices in
+// shared memory with one TMA copy, and probes every key of the range's
+// merged run in each segment there.  Its crc32c takes four independent
+// lookups into slice-by-4 tables (4 KiB) in place of four dependent ones
+// (measured against a bank-conflict-free copy of the byte table for each
+// lane, 32 KiB: python -m hwbloomradixjoin_tpu_torch.flat_split).  A key
+// whose block lies outside the range (none, for
+// a consistent partition) probes the filter in device memory.  Each
+// segment's pad run (PAD only: the hash partition's pad category, chunk
+// padding, a region's tail) is written as PAD unread, shared among the
+// span's CTAs, so every output slot is written exactly once and nothing is
+// cleared first.  The TPU staged each bucket's 2^17-bit slice in VMEM and
+// read its runs through window and ownership descriptors.
+//
+// The flat class, chosen on the host where there are no starts (S as it
+// comes) or one bucket's slice exceeds the staging budget: a grid-stride
+// stream, 16 bytes a thread, the filter in device memory and one 256-word
+// crc32c table a block.  Survivors are summed per thread in 64 bits,
 // reduced per block, and added with one atomic per block.
 
 #include <cuda_runtime.h>
@@ -27,6 +47,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "run_walk.cuh"
 
 namespace {
 
@@ -40,12 +61,11 @@ struct ProbeParams {
   int k;
 };
 
-__device__ __forceinline__ bool contains(int key, const unsigned* __restrict__ filter,
-                                         const ProbeParams& p,
-                                         const unsigned* crc_table) {
-  if (key == kPadKey) return false;
-  const unsigned long long base =
-      (unsigned long long)(hbrj::crc32c(crc_table, p.seed, key) & p.block_mask) * p.B;
+// The k probes of a key whose block starts at bit `base` of the filter in
+// device memory.
+__device__ __forceinline__ bool probe_block(const unsigned* __restrict__ filter,
+                                            unsigned long long base, int key,
+                                            const ProbeParams& p) {
   const unsigned mask = p.B - 1u;
   unsigned h = hbrj::crapwow(p.seed, key) & mask;
   unsigned y = ((unsigned)key + p.seed) & mask;
@@ -56,6 +76,15 @@ __device__ __forceinline__ bool contains(int key, const unsigned* __restrict__ f
     y = (y + (unsigned)i + 1u) & mask;
   }
   return true;
+}
+
+__device__ __forceinline__ bool contains(int key, const unsigned* __restrict__ filter,
+                                         const ProbeParams& p,
+                                         const unsigned* crc_table) {
+  if (key == kPadKey) return false;
+  const unsigned long long base =
+      (unsigned long long)(hbrj::crc32c(crc_table, p.seed, key) & p.block_mask) * p.B;
+  return probe_block(filter, base, key, p);
 }
 
 __global__ void bloom_probe(const int4* __restrict__ keys, long long n4,
@@ -82,23 +111,174 @@ __global__ void bloom_probe(const int4* __restrict__ keys, long long n4,
   if (threadIdx.x == 0 && total) atomicAdd(count, total);
 }
 
+constexpr int kRunThreads = 512;     // 3 CTAs an SM: at most 42 registers a thread
+constexpr int kQuads = 2;             // 16-byte loads a lane issues before it probes any
+constexpr int kCrcTableWords = 4 * 256;
+
+// Slice-by-4 tables of crc32c: T0 (words 0-255) the byte table, T_j[i] =
+// (T_{j-1}[i] >> 8) ^ T0[T_{j-1}[i] & 0xFF] at words 256 j + i.  Every
+// thread of the block calls it (it synchronises the block inside).
+__device__ __forceinline__ void crc32c_slice4_init(unsigned* t) {
+  hbrj::crc32c_table_init(t);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    unsigned c = t[i];
+#pragma unroll
+    for (int j = 1; j < 4; ++j) {
+      c = (c >> 8) ^ t[c & 0xFFu];
+      t[j * 256 + i] = c;
+    }
+  }
+}
+
+// hbrj::crc32c, bit for bit: the four byte steps of one 32-bit word are
+// linear, so they fold into four independent lookups.
+__device__ __forceinline__ unsigned crc32c_slice4(const unsigned* t, unsigned seed,
+                                                  int key) {
+  const unsigned x = seed ^ (unsigned)key;
+  return t[768 + (x & 0xFFu)] ^ t[512 + ((x >> 8) & 0xFFu)] ^ t[256 + ((x >> 16) & 0xFFu)]
+       ^ t[x >> 24];
+}
+
+// The k probes of a key at bit `base` of the staged slices: probe_block's
+// positions, 32-bit (a CTA stages at most 2^20 bits); kOne: k is 1.
+template <bool kOne>
+__device__ __forceinline__ bool probe_staged(const unsigned* slices, unsigned base, int key,
+                                             const ProbeParams& p) {
+  const unsigned mask = p.B - 1u;
+  const int k = kOne ? 1 : p.k;
+  unsigned h = hbrj::crapwow(p.seed, key) & mask;
+  unsigned y = ((unsigned)key + p.seed) & mask;
+  for (int i = 0; i < k;) {
+    const unsigned pos = base + h;
+    if (!((slices[pos >> 5] >> (pos & 31u)) & 1u)) return false;
+    if (++i == k) break;
+    h = (h + y) & mask;
+    y = (y + (unsigned)i) & mask;
+  }
+  return true;
+}
+
+// The staged class: a CTA a bucket range and a span of segments; its
+// filter slices (nb * W words) and the slice-by-4 crc32c tables in dynamic
+// shared memory.  kOne (k == 1, the main paths' filters) drops the probe
+// loop's bookkeeping.
+template <bool kOne>
+__global__ void __launch_bounds__(kRunThreads, 3)
+bloom_probe_runs(const int* __restrict__ keys, const int* __restrict__ starts,
+                 hbrj::RunGrid g, const unsigned* __restrict__ filter,
+                 int* __restrict__ out, unsigned long long* __restrict__ count,
+                 ProbeParams p, long long W) {
+  extern __shared__ int4 smem4[];
+  unsigned* slices = reinterpret_cast<unsigned*>(smem4);
+  unsigned* crc_table = slices + g.nb * W;
+  __shared__ unsigned long long bar;
+  const hbrj::CtaWork w = hbrj::cta_work(g);
+  const int nbk = w.j1 - w.j0;
+  hbrj::stage_slices(slices, filter, w.gb0, nbk, W, (int)W, &bar);
+  crc32c_slice4_init(crc_table);
+  __syncthreads();                               // the crc32c tables are in place
+  const unsigned bucket_blocks = (unsigned)(W * 32 / p.B);
+  const unsigned first = (unsigned)w.gb0 * bucket_blocks;   // the range's first block
+  const unsigned blocks = (unsigned)nbk * bucket_blocks;
+  auto keep = [&](int key) -> bool {
+    if (key == kPadKey) return false;
+    const unsigned block = crc32c_slice4(crc_table, p.seed, key) & p.block_mask;
+    return block - first < blocks
+        ? probe_staged<kOne>(slices, (block - first) * p.B, key, p)
+        : probe_block(filter, (unsigned long long)block * p.B, key, p);
+  };
+  unsigned long long kept = 0;
+  hbrj::walk_runs<kQuads>(
+      keys, starts, g, w, &bar,
+      [&](long long base, int p0, int p1, int glane) {  // PAD over the pad share
+        int* o = out + base;                               // 16-byte aligned
+        const int head = min(p1, (p0 + 3) & ~3);
+        const int body = max(head, p1 & ~3);
+        for (int i = p0 + glane; i < head; i += g.group) o[i] = kPadKey;
+        int4* o4 = reinterpret_cast<int4*>(o);
+        for (int i = head / 4 + glane; i < body / 4; i += g.group)
+          o4[i] = make_int4(kPadKey, kPadKey, kPadKey, kPadKey);
+        for (int i = body + glane; i < p1; i += g.group) o[i] = kPadKey;
+      },
+      [&](long long i, int key) {
+        const bool k = keep(key);
+        out[i] = k ? key : kPadKey;
+        kept += k;
+      },
+      [&](long long i, int4 v) {
+        const bool a = keep(v.x), b = keep(v.y), c = keep(v.z), d = keep(v.w);
+        kept += (unsigned long long)a + b + c + d;
+        *reinterpret_cast<int4*>(out + i) =
+            make_int4(a ? v.x : kPadKey, b ? v.y : kPadKey, c ? v.z : kPadKey,
+                      d ? v.w : kPadKey);
+      });
+  using Reduce = cub::BlockReduce<unsigned long long, kRunThreads>;
+  __shared__ typename Reduce::TempStorage temp;
+  const unsigned long long total = Reduce(temp).Sum(kept);
+  if (threadIdx.x == 0 && total) atomicAdd(count, total);
+}
+
 }  // namespace
 
 extern "C" {
 
 // keys: n int32 (n a multiple of 4, 16-byte aligned); filter: m/32 words;
-// out: n int32; count: one zeroed 64-bit word.
-int hbrj_bloom_probe(const int* keys, long long n, const int* filter, int* out,
-                     long long* count, unsigned seed, unsigned nblocks, unsigned B,
-                     int k, cudaStream_t stream) {
+// out: n int32 (16-byte aligned); count: one zeroed 64-bit word.  nb == 0:
+// the flat class (starts unread).  Else keys are hash-partitioned into nseg
+// segments of seg_elems keys with their starts (cat_words a segment,
+// seg_buckets buckets; regions: bucket j of segment r is r * seg_buckets +
+// j), bucket b's keys probing filter words [b * W, (b + 1) * W); nb, span,
+// group: the host's split (ops/run_split.py).
+int hbrj_bloom_probe(const int* keys, long long n, const int* starts, const int* filter,
+                     int* out, long long* count, unsigned seed, unsigned nblocks,
+                     unsigned B, int k, int nseg, int seg_elems, int cat_words,
+                     int seg_buckets, int regions, int nb, int span, int group,
+                     long long W, cudaStream_t stream) {
   if (n == 0) return 0;
   const ProbeParams p{seed, nblocks - 1u, B, k};
-  const long long n4 = n / 4;
-  bloom_probe<<<hbrj::grid_for(n4, kThreads), kThreads, 0, stream>>>(
-      reinterpret_cast<const int4*>(keys), n4,
-      reinterpret_cast<const unsigned*>(filter), reinterpret_cast<int4*>(out),
-      reinterpret_cast<unsigned long long*>(count), p);
+  if (nb == 0) {
+    const long long n4 = n / 4;
+    bloom_probe<<<hbrj::grid_for(n4, kThreads), kThreads, 0, stream>>>(
+        reinterpret_cast<const int4*>(keys), n4,
+        reinterpret_cast<const unsigned*>(filter), reinterpret_cast<int4*>(out),
+        reinterpret_cast<unsigned long long*>(count), p);
+    return (int)cudaGetLastError();
+  }
+  const hbrj::RunGrid g{nseg, seg_elems, cat_words, seg_buckets, regions, nb, span, group};
+  if (nseg <= 0 || (long long)nseg * seg_elems != n || seg_elems % 4 || W % 4 || W <= 0
+      || group <= 0 || group > kRunThreads || kRunThreads % group || span <= 0
+      || (regions && span != 1))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = ((long long)nb * W + kCrcTableWords) * (long long)sizeof(int);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const auto kernel = k == 1 ? bloom_probe_runs<true> : bloom_probe_runs<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return (int)err;
+  const long long grid = (long long)g.nranges() * g.nspans();
+  kernel<<<(unsigned)grid, kRunThreads, (int)smem, stream>>>(
+      keys, starts, g, reinterpret_cast<const unsigned*>(filter), out,
+      reinterpret_cast<unsigned long long*>(count), p, W);
   return (int)cudaGetLastError();
+}
+
+// Resident CTAs an SM of the class a split picks: the staged class at nb
+// buckets of W words and k probes, the flat class at nb == 0; a CUDA error
+// negated.
+int hbrj_bloom_probe_per_sm(int nb, long long W, int k) {
+  int n = 0;
+  cudaError_t err;
+  if (nb == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, bloom_probe, kThreads, 0);
+  } else {
+    const auto kernel = k == 1 ? bloom_probe_runs<true> : bloom_probe_runs<false>;
+    const int smem = (int)(((long long)nb * W + kCrcTableWords) * (long long)sizeof(int));
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (!err)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kRunThreads, smem);
+  }
+  return err ? -(int)err : n;
 }
 
 }  // extern "C"

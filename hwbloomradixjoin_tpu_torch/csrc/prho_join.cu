@@ -75,6 +75,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "run_walk.cuh"
 
 namespace {
 
@@ -144,10 +145,6 @@ Range plan_range(int F, int sl_words, int chunk_elems) {
   return r;
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
 // Thread 0 starts the copy of both tables' slices of buckets [b0, b1) into
 // shared memory (counts at 0, sums at nb * sl_words): two bulk copies that
 // complete a transaction count on *bar.  The other threads do not wait here.
@@ -156,7 +153,9 @@ __device__ __forceinline__ void load_slices(int* slices, const int* __restrict__
                                             int nb, int sl_words,
                                             unsigned long long* bar) {
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(1)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                     hbrj::smem_addr(bar)),
+                 "r"(1)
                  : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -165,31 +164,18 @@ __device__ __forceinline__ void load_slices(int* slices, const int* __restrict__
     const unsigned bytes = (unsigned)(b1 - b0) * (unsigned)sl_words * 4u;
     const long long first = (long long)b0 * sl_words;
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                     smem_u32(bar)),
+                     hbrj::smem_addr(bar)),
                  "r"(2u * bytes)
                  : "memory");
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-        "[%3];" ::"r"(smem_u32(slices)),
-        "l"(cnt + first), "r"(bytes), "r"(smem_u32(bar))
+        "[%3];" ::"r"(hbrj::smem_addr(slices)),
+        "l"(cnt + first), "r"(bytes), "r"(hbrj::smem_addr(bar))
         : "memory");
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-        "[%3];" ::"r"(smem_u32(slices + nb * sl_words)),
-        "l"(sums + first), "r"(bytes), "r"(smem_u32(bar))
-        : "memory");
-  }
-}
-
-// Blocks until the slices have landed (phase 0 of *bar has completed).
-__device__ __forceinline__ void wait_slices(unsigned long long* bar) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar))
+        "[%3];" ::"r"(hbrj::smem_addr(slices + nb * sl_words)),
+        "l"(sums + first), "r"(bytes), "r"(hbrj::smem_addr(bar))
         : "memory");
   }
 }
@@ -235,7 +221,7 @@ __device__ __forceinline__ void walk_runs(const int* __restrict__ s,
         pay[j] = kPays && idx < end ? __ldg(sp + base + idx) : 0;
       }
       if (!ready) {
-        wait_slices(bar);
+        hbrj::wait_slices(bar);
         ready = true;
       }
 #pragma unroll
@@ -248,7 +234,7 @@ __device__ __forceinline__ void walk_runs(const int* __restrict__ s,
     begin = next_begin;
     end = next_end;
   }
-  if (!ready) wait_slices(bar);
+  if (!ready) hbrj::wait_slices(bar);
 }
 
 // The shared-memory slot of `key` in the CTA's slices, or -1 when its

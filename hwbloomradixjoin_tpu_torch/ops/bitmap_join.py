@@ -21,7 +21,9 @@ the layout.
 (``build_bitmap``, ``bitmap_probe_count_plain``) for tensors on the CPU.
 Unlike the TPU kernels they need no DMA window descriptors
 (``derive_descs``): the build ORs every in-range key of partitioned R, and
-the probe streams partitioned S flat, so every element counts exactly once.
+the probe takes the S partition's ``starts`` (chunks, or pass-2 regions)
+and walks each bucket range's runs with the range's bitmap slices in
+shared memory (``ops/run_split.py``), every key counted exactly once.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 
 from hwbloomradixjoin_tpu_torch.kernels import _build
 from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
+from hwbloomradixjoin_tpu_torch.ops import run_split
 from hwbloomradixjoin_tpu_torch.ops.radix import LANES
 
 CHUNK_ROWS = 4096          # partition chunk: 512K elements (2 MiB keys)
@@ -44,6 +47,18 @@ CHUNK_ROWS = 4096          # partition chunk: 512K elements (2 MiB keys)
 SPLIT_NS_PER_BIT = 0.185
 LADDER_NS_PER_ROW = 0.004
 SHIFT_MAX = 25                 # sl_rows cap 2^13 rows = 4 MiB slice
+# The probe kernel's staging: 256 threads a CTA, 16 keys a lane in flight,
+# at most 128 KiB of bitmap slices (one bucket's live words up to shift
+# 20).  The flat class takes the rest, and two geometries where the flat
+# stream is faster (python -m hwbloomradixjoin_tpu_torch.flat_split, PERF.md
+# §6): live slices of at most 4 KiB, whose words stay in L1 (4d's 512
+# bytes), and an S of fewer than 8 keys a bitmap word (compacted S at
+# q = 0.01, whose runs are skewed: one CTA would hold the hot bucket's).
+PROBE_THREADS = 256
+PROBE_LANE_KEYS = 16
+PROBE_MAX_STAGE = 128 * 1024
+PROBE_MIN_SLICE = 4 * 1024
+PROBE_MIN_KEYS_A_WORD = 8
 
 
 def plan_geometry(lo: int, hi: int, num_radix_bits: Optional[int] = None,
@@ -149,24 +164,61 @@ def bitmap_probe_count_plain(bitmap: torch.Tensor, s_part: torch.Tensor,
     return (bit * ok).sum()
 
 
+def probe_split(s_part: torch.Tensor, starts: torch.Tensor, shift: int,
+                part_bits: int, seg_bits: Optional[int] = None,
+                sms: int = run_split.H100_SMS):
+    """The probe kernel's split of partitioned S (run_split.plan_split), or
+    None for the flat class (see PROBE_MAX_STAGE and its neighbours).
+
+    seg_bits: the bucket bits of a segment, part_bits for partition chunks
+    (None), fewer for pass-2 regions (b2: bucket j of region r is r * 2^b2
+    + j); raises on starts of the wrong size."""
+    seg_bits = part_bits if seg_bits is None else seg_bits
+    runs = run_split.segment_runs(starts, s_part, seg_bits, part_bits)
+    return run_split.plan_split(runs, seg_bits, seg_bits < part_bits,
+                                4 * live_words(shift), PROBE_MAX_STAGE,
+                                PROBE_THREADS, PROBE_LANE_KEYS, sms,
+                                PROBE_MIN_SLICE, PROBE_MIN_KEYS_A_WORD)
+
+
+def live_words(shift: int) -> int:
+    """The words of a bucket's slice that keys address (2^shift bits),
+    rounded up to whole 16-byte copies."""
+    return max((1 << shift) >> 5, 4)
+
+
 def bitmap_probe_count(bitmap: torch.Tensor, s_part: torch.Tensor, lo: int,
-                       shift: int, part_bits: int,
-                       sl_rows: int) -> torch.Tensor:
+                       shift: int, part_bits: int, sl_rows: int,
+                       starts: Optional[torch.Tensor] = None,
+                       seg_bits: Optional[int] = None) -> torch.Tensor:
     """Count S matches against the bitmap: 0-d int64 tensor on s_part's device.
 
-    Replaces the Pallas bitmap_probe_count (bitmap_join.py:314).
+    starts: the S partition's starts (partition_pass's second output at
+    these part_bits, or pass2_partition's starts2 with seg_bits = b2).  The
+    card requires it: the kernel walks each bucket range's runs through it.
+    The CPU twin checks its size and ignores it.  Replaces the Pallas
+    bitmap_probe_count (bitmap_join.py:314).
     """
     if s_part.device.type == "cpu":
+        if starts is not None:
+            probe_split(s_part, starts, shift, part_bits, seg_bits)
         return bitmap_probe_count_plain(bitmap, s_part, lo, shift, part_bits,
                                         sl_rows)
-    _build.check_cuda(bitmap, s_part)
+    if starts is None:
+        raise ValueError("bitmap_probe_count on the card needs the S "
+                         "partition's starts")
+    _build.check_cuda(bitmap, s_part, starts)
     if bitmap.numel() != (1 << part_bits) * sl_rows * LANES:
         raise ValueError(f"bitmap of {bitmap.numel()} words for geometry "
                          f"({part_bits}, {shift}, {sl_rows})")
+    split = probe_split(s_part, starts, shift, part_bits, seg_bits,
+                        run_split.card_sms(s_part.device))
+    grid = (0,) * 8 if split is None else split.args()
     out = torch.empty((), dtype=torch.int64, device=s_part.device)
     _build.launch("bitmap_probe", "hbrj_bitmap_probe", s_part.device,
                   bitmap.data_ptr(), s_part.data_ptr(), s_part.numel(),
-                  out.data_ptr(), lo, shift, 1 << part_bits, sl_rows * LANES)
+                  starts.data_ptr(), out.data_ptr(), lo, shift,
+                  1 << part_bits, sl_rows * LANES, *grid, live_words(shift))
     return out
 
 
@@ -234,15 +286,15 @@ class RadixJoinPlan:
     def s_partition(self, s_eff: torch.Tensor):
         return radix_ops.partition_pass(s_eff, self.sgeom)
 
-    def probe(self, bitmap: torch.Tensor, s_part: torch.Tensor):
+    def probe(self, bitmap: torch.Tensor, s_part: torch.Tensor,
+              starts: torch.Tensor):
         g = self.sgeom
         return bitmap_probe_count(bitmap, s_part, self.lo, g.shift,
-                                  g.part_bits, self.sl_rows)
+                                  g.part_bits, self.sl_rows, starts)
 
     def full(self) -> torch.Tensor:
         bitmap = self.build(self.r_partition()[0])
-        s_part, _ = self.s_partition(self.s_effective())
-        return self.probe(bitmap, s_part)
+        return self.probe(bitmap, *self.s_partition(self.s_effective()))
 
     def full_count(self) -> int:
         return int(self.full())
@@ -253,7 +305,7 @@ class RadixJoinPlan:
             s_eff = self.s_effective()
             self._cache.update(r_part=r_part, bitmap=self.build(r_part),
                                s_eff=s_eff,
-                               s_part=self.s_partition(s_eff)[0])
+                               s_part=self.s_partition(s_eff))
         return self._cache
 
     def phase_fns(self) -> dict:
@@ -264,7 +316,7 @@ class RadixJoinPlan:
         if self.cap_rows is not None:
             fns["compact"] = self.s_effective
         fns["s_partition"] = lambda: self.s_partition(m["s_eff"])
-        fns["probe"] = lambda: self.probe(m["bitmap"], m["s_part"])
+        fns["probe"] = lambda: self.probe(m["bitmap"], *m["s_part"])
         return fns
 
 

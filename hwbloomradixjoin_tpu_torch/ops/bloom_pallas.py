@@ -14,12 +14,15 @@ they accept any order and drop PAD.
 ``bloom_probe_prune`` launches the CUDA kernel of ``csrc/bloom.cu`` for a
 tensor on the card and runs its plain twin ``bloom_probe_prune_plain`` for a
 tensor on the CPU.  The TPU kernel held one bucket's slice in VMEM and read
-its runs through window and ownership descriptors; the port's kernel streams
-the partitioned keys flat and reads the filter in global layout, so each key
-is read, and each survivor emitted, once, at the position it arrived.  The
-contract is the JAX package's: the multiset of survivors and their exact
-count (the JAX output's shape follows its windows; the port's is its
-input's).
+its runs through window and ownership descriptors; the port's kernel takes
+the partition's ``starts`` (pass 1's chunks, or pass 2's regions) and walks
+each bucket range's runs with the range's filter slices in shared memory
+(``ops/run_split.py``); without starts (S as it comes), or where one
+bucket's slice passes the staging budget, it streams the keys flat against
+the filter in device memory.  Either way each key is read, and each
+survivor emitted, once, at the position it arrived.  The contract is the
+JAX package's: the multiset of survivors and their exact count (the JAX
+output's shape follows its windows; the port's is its input's).
 
 The planner takes the JAX package's partition geometry but none of its TPU
 limits (Mosaic's 8-row slices, pass 2's gather budget and chunk cap, a run
@@ -43,12 +46,19 @@ from hwbloomradixjoin_tpu_torch.config import BloomArgs, BloomVariant
 from hwbloomradixjoin_tpu_torch.kernels import _build
 from hwbloomradixjoin_tpu_torch.ops import bitmap_join, bloom, multipass
 from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
+from hwbloomradixjoin_tpu_torch.ops import run_split
 from hwbloomradixjoin_tpu_torch.ops.radix import LANES
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY
 
 SLICE_BITS = 17            # 2^17-bit slices (32 rows of 128 words)
 MAX_PART_BITS = 10         # one hash pass up to this depth
 MAX_PART_BITS_2PASS = 20   # 2-pass depth cap (m <= 2^37 at B = 512)
+# The probe kernel's staging: 512 threads a CTA, 8 keys a lane in flight,
+# at most 128 KiB of filter slices (beside its 4 KiB of crc32c tables);
+# past it, the flat class.
+PROBE_THREADS = 512
+PROBE_LANE_KEYS = 8
+PROBE_MAX_STAGE = 128 * 1024
 
 
 def geometry_raw(args: BloomArgs):
@@ -98,16 +108,60 @@ def bloom_probe_prune_plain(filter_words: torch.Tensor, s_part: torch.Tensor,
     return out, keep.sum()
 
 
+def probe_split(keys: torch.Tensor, args: BloomArgs,
+                starts: Optional[torch.Tensor] = None,
+                part_bits: Optional[int] = None,
+                seg_bits: Optional[int] = None,
+                sms: int = run_split.H100_SMS):
+    """The probe kernel's split of hash-partitioned keys
+    (run_split.plan_split), or None for the flat class: no starts, or one
+    bucket's filter slice (m / 32 / 2^part_bits words) past
+    PROBE_MAX_STAGE or under one 16-byte copy.
+
+    part_bits: the bits of the partition's buckets (the top part_bits of the
+    block index); seg_bits: those of a segment, part_bits for partition
+    chunks (None), b2 for pass-2 regions; raises on starts of the wrong
+    size."""
+    if starts is None:
+        return None
+    hash_bits = (args.nblocks - 1).bit_length()
+    if part_bits is None or not 0 <= part_bits <= hash_bits:
+        raise ValueError(f"starts need the partition's bits (0 to "
+                         f"{hash_bits}), got {part_bits}")
+    seg_bits = part_bits if seg_bits is None else seg_bits
+    runs = run_split.segment_runs(starts, keys, seg_bits, part_bits)
+    words = slice_words(args, part_bits)
+    if words < 4:
+        return None
+    return run_split.plan_split(runs, seg_bits, seg_bits < part_bits,
+                                4 * words, PROBE_MAX_STAGE, PROBE_THREADS,
+                                PROBE_LANE_KEYS, sms)
+
+
+def slice_words(args: BloomArgs, part_bits: int) -> int:
+    """Filter words of one bucket of a part_bits hash partition."""
+    return (args.m // 32) >> part_bits
+
+
 def bloom_probe_prune(filter_words: torch.Tensor, s_part: torch.Tensor,
-                      args: BloomArgs, out: Optional[torch.Tensor] = None):
+                      args: BloomArgs, out: Optional[torch.Tensor] = None,
+                      starts: Optional[torch.Tensor] = None,
+                      part_bits: Optional[int] = None,
+                      seg_bits: Optional[int] = None):
     """Prune hash-partitioned S against a blocked filter.
 
     filter_words: the filter's m/32 int32 words (bloom.build_bitmap);
     s_part: S keys, any shape, a multiple of 4 keys.  Writes each key the
     filter contains, PAD in place of every other key (PAD included), to the
     first s_part.numel() words of `out` (flat int32; allocated when None,
-    words past them untouched).  Returns (out, survivor count as a 0-d int64
-    tensor).  Replaces the Pallas bloom_probe_prune (bloom_pallas.py:182).
+    words past them untouched).  starts, part_bits, seg_bits: the hash
+    partition S comes in (partition_pass's starts at part_bits, or
+    pass2_partition's starts2 with part_bits = b1 + b2 and seg_bits = b2):
+    the kernel walks each bucket range's runs, and writes the pad runs and
+    region tails, which hold only PAD, as PAD unread.  Without them it
+    streams S flat; the CPU twin checks their size and ignores them.
+    Returns (out, survivor count as a 0-d int64 tensor).  Replaces the
+    Pallas bloom_probe_prune (bloom_pallas.py:182).
     """
     if args.variant != BloomVariant.BLOCKED:
         raise ValueError("the bloom probe kernel serves the blocked variant")
@@ -119,13 +173,20 @@ def bloom_probe_prune(filter_words: torch.Tensor, s_part: torch.Tensor,
         raise ValueError(f"{keys.numel()} keys: need a multiple of 4")
     out = _prune_out(keys, out)
     if keys.device.type == "cpu":
+        probe_split(keys, args, starts, part_bits, seg_bits)
         return bloom_probe_prune_plain(filter_words, keys, args, out)
-    _build.check_cuda(filter_words, keys, out)
+    _build.check_cuda(filter_words, keys, out,
+                      *(() if starts is None else (starts,)))
+    split = probe_split(keys, args, starts, part_bits, seg_bits,
+                        run_split.card_sms(keys.device))
+    grid = (0,) * 8 if split is None else split.args()
     count = torch.zeros((), dtype=torch.int64, device=keys.device)
     _build.launch("bloom_probe", "hbrj_bloom_probe", keys.device,
-                  keys.data_ptr(), keys.numel(), filter_words.data_ptr(),
-                  out.data_ptr(), count.data_ptr(), args.seed & 0xFFFFFFFF,
-                  args.nblocks, args.B, args.k)
+                  keys.data_ptr(), keys.numel(),
+                  0 if starts is None else starts.data_ptr(),
+                  filter_words.data_ptr(), out.data_ptr(), count.data_ptr(),
+                  args.seed & 0xFFFFFFFF, args.nblocks, args.B, args.k, *grid,
+                  0 if split is None else slice_words(args, part_bits))
     return out, count
 
 
@@ -154,14 +215,20 @@ class BloomPrunePlan:
     def build(self) -> torch.Tensor:
         return bloom.build_bitmap(self.r_key, self.args)
 
-    def partition(self) -> torch.Tensor:
-        s1, starts1 = radix_ops.partition_pass(self.sk_in, self.pgeom)
+    def partition(self):
+        """(keys, starts) of hash-partitioned S: pass 1's, or pass 2's
+        regions and starts2."""
+        s1 = radix_ops.partition_pass(self.sk_in, self.pgeom)
         if self.pass2 is None:
             return s1
-        return multipass.pass2_partition(s1, starts1, self.pass2)[0]
+        return multipass.pass2_partition(*s1, self.pass2)
 
-    def probe(self, words: torch.Tensor, s_part: torch.Tensor):
-        return bloom_probe_prune(words, s_part, self.args, out=self.out)
+    def probe(self, words: torch.Tensor, s_part):
+        b2 = None if self.pass2 is None else self.pass2.b2
+        return bloom_probe_prune(words, s_part[0], self.args, out=self.out,
+                                 starts=s_part[1],
+                                 part_bits=self.pgeom.part_bits + (b2 or 0),
+                                 seg_bits=b2)
 
     def prune(self):
         return self.probe(self.build(), self.partition())

@@ -16,7 +16,8 @@ The TPU kernel gathered each chunk's run through a DMA window of c1_rows
 rows (``_descs1``) and its probe read the regions through tile descriptors
 (``derive_descs_contig``).  Neither is ported: pass 2 takes pass 1's
 ``starts`` and reads each run in place, and the bitmap and bloom probes
-stream the regions flat, testing each key's own bucket.  The window
+walk the regions' runs through ``starts2`` (bucket j of region r is bucket
+r * 2^b2 + j), testing each key's own bucket.  The window
 geometry (c1_rows) is kept: it fixes which keys the TPU kernel took (range
 mode masks the window's slack by bucket, which admits keys above hi inside
 the last buckets), the planners' guards, and ``starts2`` past F2.
@@ -246,12 +247,14 @@ class TwoPassPlan:
     def s_partition(self):
         return radix_ops.partition_pass(self.sk_in, self.p1geom)
 
-    def s_pass2(self, s1) -> torch.Tensor:
-        return pass2_partition(s1[0], s1[1], self.pass2)[0]
+    def s_pass2(self, s1):
+        """(regions, starts2) of S's pass 2."""
+        return pass2_partition(s1[0], s1[1], self.pass2)
 
-    def probe(self, bitmap: torch.Tensor, s2: torch.Tensor):
-        return bitmap_join.bitmap_probe_count(bitmap, s2, self.lo, self.shift,
-                                              self.part_bits, self.sl_rows)
+    def probe(self, bitmap: torch.Tensor, s2):
+        return bitmap_join.bitmap_probe_count(
+            bitmap, s2[0], self.lo, self.shift, self.part_bits, self.sl_rows,
+            s2[1], seg_bits=self.pass2.b2)
 
     def full(self) -> torch.Tensor:
         bitmap = self.build(self.r_partition()[0])

@@ -35,6 +35,7 @@ import torch
 
 from hwbloomradixjoin_tpu_torch.kernels import _build
 from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
+from hwbloomradixjoin_tpu_torch.ops import run_split
 from hwbloomradixjoin_tpu_torch.ops.bitmap_join import CHUNK_ROWS
 from hwbloomradixjoin_tpu_torch.ops.radix import LANES
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY
@@ -123,7 +124,7 @@ def table_build(r_part: torch.Tensor, rp_part: torch.Tensor, lo: int, hi: int,
     if rp_part.shape != r_part.shape:
         raise ValueError(f"payloads {tuple(rp_part.shape)} beside keys "
                          f"{tuple(r_part.shape)}")
-    runs = _chunk_runs(starts, r_part, part_bits)
+    runs = run_split.segment_runs(starts, r_part, part_bits)
     if r_part.device.type == "cpu":
         return build_tables(r_part, rp_part, lo, hi, part_bits, shift,
                             slice_rows)
@@ -139,21 +140,6 @@ def table_build(r_part: torch.Tensor, rp_part: torch.Tensor, lo: int, hi: int,
                   *runs, cnt.data_ptr(), pay.data_ptr(), 1 << part_bits, lo,
                   hi, shift, slice_rows * LANES)
     return cnt, pay
-
-
-def _chunk_runs(starts: Optional[torch.Tensor], part: torch.Tensor,
-                part_bits: int):
-    """(nchunks, chunk_elems, cat_words) of a partition's starts table
-    beside its keys, or None without starts; raises on a size mismatch."""
-    if starts is None:
-        return None
-    cat_words = radix_ops.RadixGeom(part_bits=part_bits).cat_rows * LANES
-    nchunks = starts.numel() // cat_words
-    if nchunks * cat_words != starts.numel() or nchunks == 0 \
-            or part.numel() % nchunks or (part.numel() // nchunks) % LANES:
-        raise ValueError(f"starts of {starts.numel()} words for "
-                         f"{part.numel()} keys at {part_bits} bits")
-    return nchunks, part.numel() // nchunks, cat_words
 
 
 def probe_count_sums_plain(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
@@ -195,7 +181,7 @@ def probe_count_sums(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
     Pallas probe_count_sums (prho_join.py:351).
     """
     _check_slices(shift, slice_rows)
-    runs = _chunk_runs(starts, s_part, part_bits)
+    runs = run_split.segment_runs(starts, s_part, part_bits)
     if s_part.device.type == "cpu":
         return probe_count_sums_plain(cnt_tbl, pay_tbl, s_part, sp_part, lo,
                                       shift, part_bits, slice_rows)
@@ -270,7 +256,7 @@ def materialize_pairs(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
     if sp_part.shape != s_part.shape:
         raise ValueError(f"payloads {tuple(sp_part.shape)} beside keys "
                          f"{tuple(s_part.shape)}")
-    runs = _chunk_runs(starts, s_part, part_bits)
+    runs = run_split.segment_runs(starts, s_part, part_bits)
     if s_part.device.type == "cpu":
         return materialize_pairs_plain(cnt_tbl, pay_tbl, s_part, sp_part, lo,
                                        shift, part_bits, slice_rows)

@@ -14,8 +14,12 @@ import torch
 from hwbloomradixjoin_tpu.data import native
 from hwbloomradixjoin_tpu.ops import bitmap_join as JB
 from hwbloomradixjoin_tpu.ops import radix as JR
+from hwbloomradixjoin_tpu_torch.config import BloomArgs, BloomVariant
 from hwbloomradixjoin_tpu_torch.data import generator as TG
 from hwbloomradixjoin_tpu_torch.ops import bitmap_join as TB
+from hwbloomradixjoin_tpu_torch.ops import bloom_pallas as TBP
+from hwbloomradixjoin_tpu_torch.ops import radix as TX
+from hwbloomradixjoin_tpu_torch.ops import run_split
 
 PAD = -2**31
 
@@ -98,7 +102,8 @@ def test_probe_of_jax_bitmap_and_partition_matches_jax_count():
     assert want == _ref_count(rk, sk)
     got = TB.bitmap_probe_count(torch.from_numpy(np.array(bm)),
                                 torch.from_numpy(np.array(s_part)), lo,
-                                shift, pb, slr)
+                                shift, pb, slr,
+                                torch.from_numpy(np.array(starts)))
     assert got.dtype == torch.int64 and int(got) == want
 
 
@@ -161,3 +166,105 @@ def test_deep_shift_decoupled_build_geometry():
     want = _ref_count(rk, sk)
     assert plan.full_count() == want
     assert int(plan.phase_fns()["probe"]()) == want
+
+
+# The probes' main-path shapes: kernel, segments, rows a segment, bucket
+# bits a segment, bucket bits in all, and the bitmap's shift or the filter's
+# m.  PRO 16M x 128M at q = 1 (245 chunks, 64 slices of 32 KiB), 4d's pass-2
+# regions (64 of 64 sub-buckets, 512 live bytes a slice), PRO at q = 0.01
+# after compaction (3 chunks), 4e's hash partition (245 chunks, 1,024
+# slices of 16 KiB) and the flagship's regions (1,024 of 8 sub-buckets).
+# Last, whether the staged class takes it (the bitmap probe's flat class
+# takes 4d's 512-byte live slices and the 3 compacted chunks at q = 0.01).
+PROBE_SHAPES = {
+    "bitmap PRO q=1": ("bitmap", 245, 4096, 6, 6, 18, True),
+    "bitmap 4d": ("bitmap", 64, 17_664, 6, 12, 12, False),
+    "bitmap PRO q=0.01": ("bitmap", 3, 4096, 6, 6, 18, False),
+    "bloom 4e": ("bloom", 245, 4096, 10, 10, 1 << 27, True),
+    "bloom flagship": ("bloom", 1024, 9_776, 3, 13, 1 << 30, True),
+}
+
+
+@pytest.mark.parametrize("shape", list(PROBE_SHAPES))
+def test_probe_split_walks_every_run_once(monkeypatch, shape):
+    """The host's split of the staged probes (sizes only, meta tensors):
+    the class each main-path shape takes; then, with the bitmap probe's
+    size rules lifted where it takes the flat class, the CTAs' bucket
+    ranges and spans cover every (segment, bucket) run once, their pad
+    shares tile each pad run, regions stage their own buckets, the grid
+    fills the card; the wrappers refuse starts of the wrong size and, on
+    the CPU, count and prune as without them."""
+    kind, nseg, rows, seg_bits, bits, geo, staged = PROBE_SHAPES[shape]
+    cat_words = TX.RadixGeom(part_bits=seg_bits).cat_rows * 128
+    keys = torch.empty(nseg * rows * 128, dtype=torch.int32, device="meta")
+    starts = torch.empty(nseg * cat_words, dtype=torch.int32, device="meta")
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=geo, k=1, B=512) \
+        if kind == "bloom" else None
+
+    def split_of(st, k=keys):
+        if kind == "bitmap":
+            return TB.probe_split(k, st, geo, bits, seg_bits)
+        return TBP.probe_split(k, args, st, bits, seg_bits)
+
+    assert (split_of(starts) is not None) == staged
+    monkeypatch.setattr(TB, "PROBE_MIN_SLICE", 0)
+    monkeypatch.setattr(TB, "PROBE_MIN_KEYS_A_WORD", 0)
+    split = split_of(starts)
+    assert split is not None and split.regions == (seg_bits < bits)
+    fs = 1 << seg_bits
+    seen = np.zeros((nseg, fs), np.int64)
+    for cta in range(split.ctas):
+        rng, j0, j1, s0, s1, gb0 = run_split.cta_work(split, cta)
+        assert j0 < j1 and s0 < s1
+        assert gb0 == (s0 * fs + j0 if split.regions else j0)
+        seen[s0:s1, j0:j1] += 1
+    assert (seen == 1).all()
+    for pad_begin in (0, 77, rows * 128 - 5, rows * 128 + 9):
+        shares = [run_split.pad_share(split, r, pad_begin)
+                  for r in range(split.nranges)]
+        assert shares[0][0] == min(pad_begin, rows * 128)
+        assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+        assert shares[-1][1] == rows * 128
+    assert split.ctas >= (2 * run_split.H100_SMS if nseg > 3 else 64)
+    for bad in (starts[:-128], torch.empty(cat_words * nseg + 1,
+                                           dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError):
+            split_of(bad)
+    if split.regions:                     # regions of the wrong count
+        with pytest.raises(ValueError):
+            split_of(starts[:cat_words * (nseg // 2)],
+                     keys[:keys.numel() // 2])
+        return
+    # a small partition of the same bucket bits on the CPU: the wrappers
+    # take its starts, refuse a cut table, and give the flat results
+    rs = np.random.default_rng(seg_bits)
+    small = rs.integers(-2**31 + 1, 2**31, 3 * 8 * 128, dtype=np.int64)
+    small[::9] = -2**31
+    small = torch.from_numpy(small.astype(np.int32))
+    if kind == "bitmap":                  # 2^7 keys a bucket: 8-row slices
+        lo, shift = 1, 7
+        geom = TX.RadixGeom(chunk_rows=8, part_bits=bits, lo=lo,
+                            hi=(1 << (bits + shift)) - 1 + lo, shift=shift)
+        small[::2] = small[::2] & ((1 << (bits + shift)) - 1)
+        part, st = TX.partition_pass(small, geom)
+        bm = torch.from_numpy(rs.integers(-2**31, 2**31, (64 * 8, 128),
+                                          dtype=np.int64).astype(np.int32))
+        probe = (bm, part, lo, shift, bits, 8)
+        want = TB.bitmap_probe_count(*probe)
+        assert int(TB.bitmap_probe_count(*probe, st)) == int(want) > 0
+        with pytest.raises(ValueError):
+            TB.bitmap_probe_count(*probe, st[:-128])
+    else:
+        hash_bits = (args.nblocks - 1).bit_length()
+        geom = TX.RadixGeom(chunk_rows=8, part_bits=bits,
+                            hash_seed=args.seed, hash_bits=hash_bits)
+        part, st = TX.partition_pass(small, geom)
+        words = torch.zeros(args.m // 32, dtype=torch.int32)
+        words[::3] = -1
+        want = TBP.bloom_probe_prune(words, part, args)
+        got = TBP.bloom_probe_prune(words, part, args, starts=st,
+                                    part_bits=bits)
+        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+        with pytest.raises(ValueError):
+            TBP.bloom_probe_prune(words, part, args, starts=st[:-128],
+                                  part_bits=bits)

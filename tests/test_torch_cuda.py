@@ -12,7 +12,15 @@ payloads, the hash-mode partition, pass 2 in both modes (all PAD, one chunk,
 empty buckets, b2 = 1, 2, 3, 6 and 10, spans of several chunks whose windows
 do not divide into tiles, runs of 0 and 1 keys, regions truncated at their
 capacity), the bloom probe (k = 1..8, B = 32 to 2^17, no survivors),
-the prune past the TPU's limits (2,049 chunks, a hot key), the dense count
+the prune past the TPU's limits (2,049 chunks, a hot key), the bitmap and
+bloom probes walking a partition's runs in every class and split (bucket
+ranges of 1, 3 and 4 buckets, spans of 1, 2 and every segment, 1 to 512
+lanes a run; chunks and pass-2 regions with their tails; runs of 0 and 1
+keys, an all-PAD and a one-bucket segment, keys below lo, above hi inside
+the last bucket and past it; empty and full bitmaps and filters; an output
+pre-filled with a sentinel; the flat classes past the staging budget and
+without starts, and the bitmap probe's for small live slices and a small S;
+no starts refused by the bitmap probe), the dense count
 (odd lengths, wrapping sums, all PAD), materialization (payloads at -2^31,
 PAD, empty buckets), the probe and materialization over bucket ranges
 (every slice size, 1 to 16 buckets a CTA, one bucket holding all of S, a pad
@@ -26,6 +34,8 @@ counters.  This file imports no jax, so on a machine without it run:
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -38,7 +48,9 @@ from hwbloomradixjoin_tpu_torch.ops import bloom_pallas as BP
 from hwbloomradixjoin_tpu_torch.ops import dense_join as D
 from hwbloomradixjoin_tpu_torch.ops import multipass as M
 from hwbloomradixjoin_tpu_torch.ops import prho_join as P
+from hwbloomradixjoin_tpu_torch.ops import hashes
 from hwbloomradixjoin_tpu_torch.ops import radix as X
+from hwbloomradixjoin_tpu_torch.ops import run_split
 
 PAD = -2**31
 
@@ -121,8 +133,8 @@ def test_build_and_probe_kernels_match_twins(cuda, lo, hi, bits):
                     _keys(rng, 3 * 64 * 128 - 5000, lo, hi)]).to(cuda)
     sgeom = X.RadixGeom(chunk_rows=64, part_bits=pb, lo=lo, hi=hi,
                         shift=shift)
-    s_part = X.partition_pass(sk, sgeom)[0]
-    got = B.bitmap_probe_count(bm, s_part, lo, shift, pb, slr)
+    s_part, s_starts = X.partition_pass(sk, sgeom)
+    got = B.bitmap_probe_count(bm, s_part, lo, shift, pb, slr, s_starts)
     want = B.bitmap_probe_count_plain(bm, s_part, lo, shift, pb, slr)
     truth = int(np.isin(sk.cpu().numpy(), rk).sum())
     assert int(got) == int(want) == truth
@@ -998,3 +1010,237 @@ def test_materialize_on_card_keeps_pad_payloads(cuda):
         return torch.sort((r.s_payload.long() << 32)
                           | (r.r_payload.long() & 0xFFFFFFFF)).values
     assert torch.equal(pairs(res), pairs(ref))
+
+
+# Splits forced on the staged probes (ops/run_split.py): the planner's own;
+# 3 buckets a CTA (a partial last range), a segment a CTA; 1 bucket, every
+# segment in one span, a warp a run; 4 buckets, spans of 2, one lane a run.
+# Regions keep one segment a CTA.  The bitmap probe's size rules (its flat
+# class for small live slices and a small S) are lifted, so these small
+# inputs take the staged class.
+PROBE_SPLITS = {"planned": {}, "nb3": dict(nb=3, span=1),
+                "all_segments": dict(nb=1, span=1 << 30, group=32),
+                "lane_runs": dict(nb=4, span=2, group=1)}
+
+
+def _force_split(monkeypatch, name):
+    monkeypatch.setattr(B, "PROBE_MIN_SLICE", 0)
+    monkeypatch.setattr(B, "PROBE_MIN_KEYS_A_WORD", 0)
+    planned = run_split.plan_split
+    force = PROBE_SPLITS[name]
+
+    def forced(*args, **kwargs):
+        split = planned(*args, **kwargs)
+        if split is None or not force:
+            return split
+        return dataclasses.replace(
+            split, nb=min(force["nb"], split.seg_buckets),
+            span=1 if split.regions else min(force["span"], split.nseg),
+            group=force.get("group", split.group))
+    monkeypatch.setattr(run_split, "plan_split", forced)
+
+
+@pytest.mark.parametrize("split", list(PROBE_SPLITS))
+@pytest.mark.parametrize("chunk_rows,nchunks,bits,lo,hi", [
+    (8, 5, 10, 1, 5_000_000),           # 1,024 buckets: runs of 0-1 keys
+    (64, 4, 6, 1, 5_000_000),           # shift 17: keys above hi in bucket 38
+    (16, 3, 4, -(1 << 20), (1 << 20) - 1)])
+def test_bitmap_probe_walks_every_split(cuda, monkeypatch, split, chunk_rows,
+                                        nchunks, bits, lo, hi):
+    """The staged bitmap probe over partition chunks against the twin and
+    numpy: keys of R, below lo, above hi inside the last bucket and past it,
+    PAD, an all-PAD chunk and a chunk of one bucket; the built, an empty and
+    a full bitmap (the full one counts the keys above hi inside the last
+    bucket, from the pad runs)."""
+    _force_split(monkeypatch, split)
+    rng = np.random.default_rng(bits + chunk_rows)
+    pb, shift, slr = B.plan_geometry(lo, hi, bits)
+    rk = (rng.choice(hi - lo + 1, 60_000, replace=False) + lo).astype(np.int32)
+    chunk = chunk_rows * 128
+    n = nchunks * chunk
+    sk = _keys(rng, n, lo, hi).numpy()
+    sk[:n // 3] = rng.choice(rk, n // 3)
+    top = lo + ((1 << pb) << shift) - 1                 # the last bucket's end
+    sk[n // 3:n // 3 + 300] = rng.integers(hi + 1, max(top, hi + 1) + 1, 300)
+    rng.shuffle(sk)
+    sk[chunk:2 * chunk] = PAD                           # an all-PAD chunk
+    sk[2 * chunk:3 * chunk] = rng.integers(lo, lo + (1 << shift), chunk)
+    s_in = torch.from_numpy(sk).to(cuda)
+    part, starts = X.partition_pass(s_in, X.RadixGeom(
+        chunk_rows=chunk_rows, part_bits=pb, lo=lo, hi=hi, shift=shift))
+    assert B.probe_split(part, starts, shift, pb) is not None
+    built = B.build_bitmap(torch.from_numpy(rk).to(cuda), lo, hi, pb, shift,
+                           slr)
+    for bm in (built, torch.zeros_like(built), torch.full_like(built, -1)):
+        got = B.bitmap_probe_count(bm, part, lo, shift, pb, slr, starts)
+        want = B.bitmap_probe_count_plain(bm, part, lo, shift, pb, slr)
+        torch.cuda.synchronize()
+        assert int(got) == int(want)
+    assert int(B.bitmap_probe_count(built, part, lo, shift, pb, slr,
+                                    starts)) == int(np.isin(sk, rk).sum())
+
+
+@pytest.mark.parametrize("split", ["planned", "nb3", "lane_runs"])
+@pytest.mark.parametrize("chunk_rows,nchunks,b1,b2", [(64, 5, 3, 3),
+                                                      (8, 40, 6, 2)])
+def test_bitmap_probe_walks_pass2_regions(cuda, monkeypatch, split,
+                                          chunk_rows, nchunks, b1, b2):
+    """The staged bitmap probe over range-mode pass-2 regions (bucket j of
+    region r is r * 2^b2 + j; each region's PAD tail tested from device
+    memory) against the twin, for the built, an empty and a full bitmap."""
+    _force_split(monkeypatch, split)
+    rng = np.random.default_rng(b1 * 8 + b2)
+    keys = _pass2_keys(rng, "range", nchunks * chunk_rows * 128)
+    regions, starts2 = _pass2_case(cuda, "range", chunk_rows, nchunks, b1,
+                                   b2, keys)
+    pb, shift = b1 + b2, 24 - b1 - b2
+    slr = max(1 << (shift - 12), 8)
+    split_ = B.probe_split(regions, starts2, shift, pb, b2)
+    assert split_ is not None and split_.regions
+    live = keys[(keys >= 1) & (keys <= 16_000_000)]
+    built = B.build_bitmap(live[::3].to(cuda), 1, 16_000_000, pb, shift, slr)
+    for bm in (built, torch.zeros_like(built), torch.full_like(built, -1)):
+        got = B.bitmap_probe_count(bm, regions, 1, shift, pb, slr, starts2,
+                                   seg_bits=b2)
+        want = B.bitmap_probe_count_plain(bm, regions, 1, shift, pb, slr)
+        torch.cuda.synchronize()
+        assert int(got) == int(want)
+
+
+@pytest.mark.parametrize("bits,nchunks,why", [
+    (2, 3, "512 KiB slices, past the staging budget"),
+    (12, 40, "512-byte live slices"),
+    (6, 3, "fewer than 8 keys a bitmap word")])
+def test_bitmap_probe_flat_class_and_needs_starts(cuda, bits, nchunks, why):
+    """Each geometry of the flat class over 2^24 keys, against the twin and
+    numpy; without starts, or with starts of the wrong size, the probe
+    raises on the card."""
+    rng = np.random.default_rng(23 + bits)
+    lo, hi = 1, 1 << 24
+    pb, shift, slr = B.plan_geometry(lo, hi, bits)
+    rk = (rng.choice(hi, 100_000, replace=False) + lo).astype(np.int32)
+    sk = _keys(rng, nchunks * 4096 * 128, lo, hi)
+    sk[:5000] = torch.from_numpy(rng.choice(rk, 5000))
+    part, starts = X.partition_pass(sk.to(cuda), X.RadixGeom(
+        chunk_rows=4096, part_bits=pb, lo=lo, hi=hi, shift=shift))
+    assert B.probe_split(part, starts, shift, pb) is None, why
+    bm = B.build_bitmap(torch.from_numpy(rk).to(cuda), lo, hi, pb, shift, slr)
+    for b in (bm, torch.full_like(bm, -1)):
+        got = B.bitmap_probe_count(b, part, lo, shift, pb, slr, starts)
+        assert int(got) == int(B.bitmap_probe_count_plain(b, part, lo, shift,
+                                                          pb, slr))
+    assert int(B.bitmap_probe_count(bm, part, lo, shift, pb, slr, starts)) \
+        == int(np.isin(sk.numpy(), rk).sum())
+    with pytest.raises(ValueError, match="starts"):
+        B.bitmap_probe_count(bm, part, lo, shift, pb, slr)
+    with pytest.raises(ValueError, match="starts"):
+        B.bitmap_probe_count(bm, part, lo, shift, pb, slr, starts[:-128])
+
+
+def _one_bucket_keys(rng, args, bits, n):
+    """n keys (not PAD) of hash bucket 0 at `bits` of the block index."""
+    hash_bits = (args.nblocks - 1).bit_length()
+    found = []
+    while sum(len(f) for f in found) < n:
+        k = rng.integers(-2**31 + 1, 2**31, 1 << 16, dtype=np.int64) \
+            .astype(np.int32)
+        block = hashes.hash_crc(args.seed, torch.from_numpy(k)).numpy() \
+            & ((1 << hash_bits) - 1)
+        found.append(k[block >> (hash_bits - bits) == 0])
+    return np.concatenate(found)[:n]
+
+
+def _prune_check(cuda, words, keys, args, **kw):
+    """The kernel's prune into a sentinel-filled buffer equals the twin's
+    on every slot of the keys, and leaves the words past them alone."""
+    n = keys.numel()
+    out = torch.full((n + 256,), 3, dtype=torch.int32, device=cuda)
+    got, count = BP.bloom_probe_prune(words, keys, args, out=out, **kw)
+    want, wn = BP.bloom_probe_prune_plain(words, keys, args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:n], want.reshape(-1)) and int(count) == int(wn)
+    assert (got[n:] == 3).all()
+    return int(count)
+
+
+@pytest.mark.parametrize("split", list(PROBE_SPLITS))
+@pytest.mark.parametrize("chunk_rows,nchunks,bits,m,B,k", [
+    (8, 6, 10, 1 << 22, 512, 1),        # 1,024 buckets: runs of 0-1 keys
+    (64, 4, 5, 1 << 22, 512, 3),
+    (16, 3, 2, 1 << 16, 32, 8)])
+def test_bloom_probe_walks_every_split(cuda, monkeypatch, split, chunk_rows,
+                                       nchunks, bits, m, B, k):
+    """The staged bloom probe over hash-partition chunks (an all-PAD chunk,
+    a chunk of one bucket) against the twin, for the built, an empty and a
+    full filter, into an output pre-filled with a sentinel."""
+    _force_split(monkeypatch, split)
+    rng = np.random.default_rng(bits + k)
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=m, k=k, B=B, seed=7)
+    chunk = chunk_rows * 128
+    add = _hash_keys(rng, 20_000, 0.0)
+    s = torch.cat([add[:3000], _hash_keys(rng, nchunks * chunk - 3000)])
+    s = s[torch.from_numpy(rng.permutation(s.numel()))]
+    s[chunk:2 * chunk] = PAD
+    s[2 * chunk:3 * chunk] = torch.from_numpy(
+        _one_bucket_keys(rng, args, bits, chunk))
+    geom = X.RadixGeom(chunk_rows=chunk_rows, part_bits=bits,
+                       hash_seed=args.seed,
+                       hash_bits=(args.nblocks - 1).bit_length())
+    part, starts = X.partition_pass(s.to(cuda), geom)
+    kw = dict(starts=starts, part_bits=bits)
+    assert BP.probe_split(part.reshape(-1), args, **kw) is not None
+    words = bloom.build_bitmap(add.to(cuda), args)
+    kept = _prune_check(cuda, words, part, args, **kw)
+    assert kept >= int((torch.isin(s, add) & (s != PAD)).sum()) > 0
+    assert _prune_check(cuda, torch.zeros_like(words), part, args, **kw) == 0
+    assert _prune_check(cuda, torch.full_like(words, -1), part, args, **kw) \
+        == int((s != PAD).sum())
+
+
+@pytest.mark.parametrize("split", ["planned", "nb3", "lane_runs"])
+@pytest.mark.parametrize("chunk_rows,nchunks,b1,b2,m", [
+    (64, 5, 3, 3, 1 << 24), (8, 40, 6, 2, 1 << 22)])
+def test_bloom_probe_walks_pass2_regions(cuda, monkeypatch, split,
+                                         chunk_rows, nchunks, b1, b2, m):
+    """The staged bloom probe over hash-mode pass-2 regions: each region's
+    PAD tail is written as PAD over a sentinel, every other slot equals the
+    twin's, for the built and a full filter."""
+    _force_split(monkeypatch, split)
+    rng = np.random.default_rng(b1 + b2 + chunk_rows)
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=m, k=2, B=512, seed=9)
+    hash_bits = (args.nblocks - 1).bit_length()
+    keys = _hash_keys(rng, nchunks * chunk_rows * 128)
+    s1, st1 = X.partition_pass(keys.to(cuda), X.RadixGeom(
+        chunk_rows=chunk_rows, part_bits=b1, hash_seed=args.seed,
+        hash_bits=hash_bits))
+    p2 = M.plan_pass2(s1, st1, b1, b2, chunk_rows, None, hash_seed=args.seed,
+                      hash_bits=hash_bits)
+    regions, starts2 = M.pass2_partition(s1, st1, p2)
+    kw = dict(starts=starts2, part_bits=b1 + b2, seg_bits=b2)
+    split_ = BP.probe_split(regions.reshape(-1), args, **kw)
+    assert split_ is not None and split_.regions
+    words = bloom.build_bitmap(keys[::4].to(cuda), args)
+    assert _prune_check(cuda, words, regions, args, **kw) \
+        >= int((keys[::4] != PAD).sum())
+    assert _prune_check(cuda, torch.full_like(words, -1), regions, args,
+                        **kw) == int((keys != PAD).sum())
+
+
+def test_bloom_probe_flat_class_past_the_staging_budget(cuda):
+    """One bucket of a 2^24-bit filter at 0 partition bits is 2 MiB: the
+    flat class, with starts; starts without the partition's bits, or of
+    the wrong size, are refused."""
+    rng = np.random.default_rng(29)
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 24, k=2, B=512)
+    keys = _hash_keys(rng, 2 * 64 * 128)
+    part, starts = X.partition_pass(keys.to(cuda), X.RadixGeom(
+        chunk_rows=64, part_bits=0, hash_seed=args.seed,
+        hash_bits=(args.nblocks - 1).bit_length()))
+    assert BP.probe_split(part.reshape(-1), args, starts, 0) is None
+    words = bloom.build_bitmap(keys[::3].to(cuda), args)
+    _prune_check(cuda, words, part, args, starts=starts, part_bits=0)
+    with pytest.raises(ValueError):
+        BP.bloom_probe_prune(words, part, args, starts=starts)
+    with pytest.raises(ValueError):
+        BP.bloom_probe_prune(words, part, args, starts=starts[:-128],
+                             part_bits=0)
