@@ -15,9 +15,14 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    workload B's count geometry plan_geometry_counts(1, 128_000_000) =
    (13, 14, 128) with
    a non-unique R and an S holding PAD, keys below lo and keys above hi;
-   the bitmap probe walks the S partition's starts (its staged class) and,
-   at 2 bits (512 KiB slices), takes its flat class;
-   3d. the bloom kernels: the hash-mode partition at the flagship's pass-1
+   the bitmap build walks the R partition's starts (its staged class: a
+   cluster of CTAs a bucket range); the bitmap probe walks the S
+   partition's starts (its staged class) and, at 2 bits (512 KiB slices),
+   takes its flat class;
+   3d. the bitmap build at 4d's geometry (12 bits, 4 KiB slices of 512 live
+   bytes) and at the flagship's build geometry (8 bits of [1, 128M], 64 KiB
+   slices), R with a PAD tail in a junk bucket; the bloom kernels: the
+   hash-mode partition at the flagship's pass-1
    geometry (10 of 21 bits), pass 2 in range mode (b1 = b2 = 6 over
    [1, 16M]) and in hash mode (b1 = 10, b2 = 3), the bitmap probe over the
    range regions, and the bloom probe against an m = 2^30, k = 1, B = 512
@@ -42,16 +47,18 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
 4c. PRO over a non-unique build (16M ⋈ 128M, --non-unique generators): the
    tier must be cuda_prho, count and checksums those of the ht tier;
 4d. two-pass PRO 16M ⋈ 128M at q = 1, RadixConfig(passes=2,
-   num_radix_bits=12): the two-pass plan (6 + 6 bits), count 128,000,000
+   num_radix_bits=12): the two-pass plan (6 + 6 bits), count 128,000,000,
+   its bitmap build (12 bits) equal to the twin's bit for bit
    (and in phase 5 one line of pass 2's ms and ns a key at b2 = 3, 6 and
    10 over its S, each equal to the twin);
 4e. BPRO 16M ⋈ 128M at q = 0.01 with a blocked filter (k = 1, m = 2^27,
    B = 512): one 10-bit hash pass, exact count, S-tuples after filter
-   equal to the plain prune's on the card;
+   equal to the plain prune's on the card, the build equal to the twin's;
 4f. BRJ 128M ⋈ 1.024B at q = 0.01, blocked, k = 1, m = 2^30, B = 512 (the
    reference's headline bloom run, BASELINE.md:43): the two-pass prune
-   (10 + 3 bits), the same checks, and the survivor share beside the
-   reference's 12.14 %;
+   (10 + 3 bits), the same checks (the build at 8 bits of 64 KiB slices
+   over 128M R keys), and the survivor share beside the reference's
+   12.14 %;
    every run_join above uses allow_dense=False;
 4g. run_join("PRO") with EngineConfig() over 4's relations (the generator's
    dense PK) at q = 1 and q = 0.01: the dense tier, the exact count and the
@@ -79,8 +86,8 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    again equal its twin's bit for bit, beside each kernel's bound (bytes
    moved over the card's memory rate, or int32 operations over its int32
    rate); then one line of the class, split, CTAs and resident CTAs an SM
-   that the bitmap and bloom probes take at PRO q = 1 and q = 0.01, 4d, 4e
-   and the flagship.
+   that the bitmap build and the bitmap and bloom probes take at PRO q = 1
+   and q = 0.01, 4d, 4e and the flagship.
 
 Prints, in order: the card line, each phase's results and wall time, a
 {"kernels": [...]} JSON line, and as the last line {"ok": true, "device":
@@ -229,13 +236,16 @@ def compare_kernels(dev, rng, err) -> None:
     for keys, geom in ((r_in, rgeom), (s_in, sgeom)):
         record(err, "partition", X.partition_pass(keys, geom),
                X.partition_pass_plain(keys, geom))
-    r_part = X.partition_pass(r_in, rgeom)[0]
+    r_part, r_starts = X.partition_pass(r_in, rgeom)
     s_part = X.partition_pass(s_in, sgeom)[0]
     for cap in (None, 8, 48):
         record(err, "compact",
                X.compact_pass(s_in, lo, hi, chunk_rows, cap_rows=cap),
                X.compact_pass_plain(s_in, lo, hi, chunk_rows, cap_rows=cap))
-    bm = B.bitmap_build(r_part, lo, hi, rb, rshift, rslr)
+    if B.build_split(r_part, r_starts, rshift, rb) is None:
+        raise AssertionError("the build took the flat class at PRO's "
+                             "geometry")
+    bm = B.bitmap_build(r_part, lo, hi, rb, rshift, rslr, r_starts)
     record(err, "bitmap_build", bm,
            B.build_bitmap(r_part, lo, hi, rb, rshift, rslr))
     # the probe's two classes: these 4 chunks are under 8 keys a bitmap
@@ -271,6 +281,59 @@ def pro_stream(rng, n, lo, hi) -> np.ndarray:
     sk = sk.astype(np.int32)
     sk[-1000:] = PAD_KEY
     return sk
+
+
+def compare_build_geometries(dev, rng, err) -> None:
+    """Phase 3d, the bitmap build against its twin on 4 chunks at 4d's
+    geometry (12 bits of [1, 16M]: 4 KiB slices, 512 live bytes) and at the
+    flagship's build geometry (8 bits of [1, 128M]: 64 KiB slices): R
+    unique in range with a PAD tail, partitioned as the plans do (no pad
+    category: PAD in a junk bucket's run)."""
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+    from hwbloomradixjoin_tpu_torch.ops import radix as X
+
+    chunk = B.CHUNK_ROWS * 128
+    shapes = []
+    for hi, bits in ((R_SIZE, 12), (FLAG_R_SIZE, None)):
+        pb, shift, slr = B.plan_geometry(1, hi, bits)
+        rb, rshift, rslr = B.plan_build_geometry(1, hi, pb, shift, slr)
+        rk = rng.choice(hi, 4 * chunk - 5000, replace=False).astype(np.int32)
+        r_in = X._chunk_pad(rk + 1, 4 * chunk, dev)
+        rgeom = X.RadixGeom(chunk_rows=B.CHUNK_ROWS, part_bits=rb, lo=1,
+                            hi=hi, shift=rshift,
+                            pad_cat=not X.pad_cat_safe(1, hi))
+        r_part, r_starts = X.partition_pass(r_in, rgeom)
+        split = B.build_split(r_part, r_starts, rshift, rb)
+        if split is None:
+            raise AssertionError(f"the build at {(rb, rshift)} took the flat "
+                                 f"class")
+        record(err, "bitmap_build",
+               B.bitmap_build(r_part, 1, hi, rb, rshift, rslr, r_starts),
+               B.build_bitmap(r_part, 1, hi, rb, rshift, rslr))
+        shapes.append(f"{(rb, rshift, rslr)} (nb={split.nb} "
+                      f"share={split.share})")
+    print(f"kernel vs twin: bit-exact bitmap build at 4d's geometry "
+          f"{shapes[0]} and the flagship's build geometry {shapes[1]}",
+          flush=True)
+
+
+def check_build(label, plan, err) -> None:
+    """The bitmap build of a planned join's R partition (the main path's
+    full shape) against its twin, bit for bit."""
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+    from hwbloomradixjoin_tpu_torch.ops import multipass as M
+
+    join = getattr(plan, "join", plan)
+    m = join._intermediates()
+    if isinstance(join, M.TwoPassPlan):
+        geo = (join.part_bits, join.shift, join.sl_rows)
+    else:
+        geo = (join.rgeom.part_bits, join.rgeom.shift, join.r_sl_rows)
+    args = (m["r_part"], join.lo, join.hi, *geo)
+    record(err, "bitmap_build", B.bitmap_build(*args, m["r_starts"]),
+           B.build_bitmap(*args))
+    print(f"{label}: bitmap build at {geo} over {m['r_part'].numel()} keys "
+          f"bit-exact against the twin", flush=True)
 
 
 def compare_table_kernels(dev, rng, err) -> None:
@@ -633,7 +696,7 @@ def run_pro_path(dev, q, kind, launches):
                                        device=dev), R, S
 
 
-def run_two_pass(R, S, kind, launches):
+def run_two_pass(R, S, kind, launches, err):
     """Phase 4d: two-pass PRO 16M ⋈ 128M at q = 1 (6 + 6 bits).  Returns
     the two-pass plan of the same inputs for kernel timing."""
     from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
@@ -659,6 +722,7 @@ def run_two_pass(R, S, kind, launches):
     if not isinstance(plan, multipass.TwoPassPlan):
         raise AssertionError(f"two-pass: planned {type(plan).__name__}")
     print(f"two-pass plan: pass 2 {plan.pass2}", flush=True)
+    check_build("two-pass PRO", plan, err)
     return plan
 
 
@@ -689,7 +753,7 @@ def run_bloom(R, S, s_size, q, args, must, label, kind, launches):
     return st
 
 
-def run_bpro(R, S, kind, launches):
+def run_bpro(R, S, kind, launches, err):
     """Phase 4e: BPRO 16M ⋈ 128M at q = 0.01, blocked, k = 1, m = 2^27,
     B = 512 (one 10-bit hash pass).  Returns the filtered plan of the same
     inputs for kernel timing."""
@@ -706,11 +770,13 @@ def run_bpro(R, S, kind, launches):
                "bitmap_build", "bitmap_probe"),
               "BPRO 16M x 128M q=0.01 blocked k=1 m=2^27 B=512", kind,
               launches)
-    return registry.plan_kernel_join("cuda_radix", R, S, EngineConfig(
+    plan = registry.plan_kernel_join("cuda_radix", R, S, EngineConfig(
         allow_dense=False), *registry.key_ranges(R), bloom_args=args)
+    check_build("BPRO", plan, err)
+    return plan
 
 
-def run_flagship(dev, kind, launches):
+def run_flagship(dev, kind, launches, err):
     """Phase 4f: BRJ 128M ⋈ 1.024B at q = 0.01, blocked, k = 1, m = 2^30,
     B = 512: the two-pass prune.  S's keys only are on the card.  Returns
     the probes' class cells at the flagship."""
@@ -762,13 +828,15 @@ def run_flagship(dev, kind, launches):
     del words
     plan = registry.plan_kernel_join("cuda_radix", R, S, EngineConfig(
         allow_dense=False), *registry.key_ranges(R), bloom_args=args)
-    return probe_class_cells("flagship", plan, run_split.card_sms(dev))
+    check_build("BRJ 128M x 1.024B", plan, err)
+    return class_cells("flagship", plan, run_split.card_sms(dev))
 
 
-def probe_class_cells(label, plan, sms) -> list:
-    """The class each probe kernel of a planned join takes (the bloom probe
-    of its prune, if any, and the bitmap probe), its split, CTAs and
-    resident CTAs an SM on this card: one cell each."""
+def class_cells(label, plan, sms) -> list:
+    """The class each kernel of a planned join that walks runs takes (the
+    bloom probe of its prune, if any, the bitmap build and the bitmap
+    probe), its split, CTAs and resident CTAs an SM on this card: one cell
+    each."""
     import torch
     from hwbloomradixjoin_tpu_torch.kernels import _build
     from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
@@ -805,6 +873,20 @@ def probe_class_cells(label, plan, sms) -> list:
                           BP.slice_words(prune.args, bits), prune.args.k))
     join = getattr(plan, "join", plan)
     m = join._intermediates()
+    if isinstance(join, M.TwoPassPlan):
+        rbits, rshift = join.part_bits, join.shift
+    else:
+        rbits, rshift = join.rgeom.part_bits, join.rgeom.shift
+    split = B.build_split(m["r_part"], m["r_starts"], rshift, rbits, sms)
+    with torch.cuda.device(0):
+        per_sm = _build.lib().hbrj_bitmap_build_per_sm(
+            0 if split is None else split.nb, B.live_words(rshift),
+            0 if split is None else split.nseg)
+    cells.append(f"{label} bitmap_build: flat, {per_sm} CTAs an SM"
+                 if split is None else
+                 f"{label} bitmap_build: staged, clusters of {split.share} "
+                 f"over ranges (nb={split.nb}), "
+                 f"{split.ctas} CTAs, {per_sm} an SM")
     if isinstance(join, M.TwoPassPlan):
         shift = join.shift
         split = B.probe_split(*m["s2"], shift, join.part_bits, join.pass2.b2,
@@ -1127,6 +1209,7 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
     m = p1._intermediates()
     g, rg = p1.sgeom, p1.rgeom
     build_args = (m["r_part"], 1, R_SIZE, rg.part_bits, rg.shift, p1.r_sl_rows)
+    r_starts = m["r_starts"]
     s_part, s_starts = m["s_part"]
     probe_args = (m["bitmap"], s_part, 1, g.shift, g.part_bits, p1.sl_rows)
     compact_args = (p2.sk_in, 1, R_SIZE, g.chunk_rows, p2.cap_rows)
@@ -1171,9 +1254,9 @@ def time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan,
         "compact": (lambda: X.compact_pass(*compact_args),
                     lambda: X.compact_pass_plain(*compact_args),
                     nbytes(p2.sk_in), p2.sk_in.numel()),
-        "bitmap_build": (lambda: B.bitmap_build(*build_args),
+        "bitmap_build": (lambda: B.bitmap_build(*build_args, r_starts),
                          lambda: B.build_bitmap(*build_args),
-                         nbytes(m["r_part"]), m["r_part"].numel()),
+                         nbytes(m["r_part"], r_starts), m["r_part"].numel()),
         # at q=1 S covers R's whole key range, so it needs every bitmap word
         "bitmap_probe": (lambda: B.bitmap_probe_count(*probe_args, s_starts),
                          lambda: B.bitmap_probe_count_plain(*probe_args),
@@ -1285,8 +1368,9 @@ def main():
     compare_table_kernels(dev, rng, err)
     t0 = done("3 (kernel vs twin)", t0)
 
+    compare_build_geometries(dev, rng, err)
     compare_bloom_kernels(dev, rng, err)
-    t0 = done("3d (bloom kernels vs twins)", t0)
+    t0 = done("3d (build geometries, bloom kernels vs twins)", t0)
     compare_new_kernels(dev, rng, err)
     t0 = done("3e (dense, materialize, gathered probe vs twins)", t0)
 
@@ -1304,9 +1388,9 @@ def main():
     t0 = done("4j (PRHO at 14-17 bits, partition widths)", t0)
     run_nonunique(dev, kind, launches)
     t0 = done("4c (non-unique build)", t0)
-    two_pass = run_two_pass(*pro[1.0][1:], kind, launches)
+    two_pass = run_two_pass(*pro[1.0][1:], kind, launches, err)
     t0 = done("4d (two-pass PRO)", t0)
-    bpro = run_bpro(*pro[0.01][1:], kind, launches)
+    bpro = run_bpro(*pro[0.01][1:], kind, launches, err)
     t0 = done("4e (BPRO 16M x 128M)", t0)
     for q in (1.0, 0.01):
         run_dense(*pro[q][1:], q, kind, launches)
@@ -1325,7 +1409,7 @@ def main():
     t0 = done("4i (radix_join_count)", t0)
     dense_in = (pro[1.0][2].key, pro[1.0][2].payload)
     del pro
-    flag_cells = run_flagship(dev, kind, launches)
+    flag_cells = run_flagship(dev, kind, launches, err)
     torch.cuda.empty_cache()
     t0 = done("4f (BRJ 128M x 1.024B)", t0)
 
@@ -1336,8 +1420,8 @@ def main():
     cells = [c for label, plan in (("PRO q=1", pro_plans[1.0]),
                                    ("PRO q=0.01", pro_plans[0.01]),
                                    ("4d", two_pass), ("4e", bpro))
-             for c in probe_class_cells(label, plan, sms)]
-    print("probe classes: " + "; ".join(cells + flag_cells), flush=True)
+             for c in class_cells(label, plan, sms)]
+    print("classes: " + "; ".join(cells + flag_cells), flush=True)
     done("5 (kernel times)", t0)
     rows = [{"name": name, "route": route, "source": source,
              "replaces": replaces, "launches": launches[name],

@@ -1,6 +1,6 @@
-// The bucket-range walk of the probes over a partition's runs (Hopper,
-// sm_90a), shared by the bitmap probe (csrc/bitmap_join.cu) and the bloom
-// probe (csrc/bloom.cu).
+// The bucket-range walks over a partition's runs (Hopper, sm_90a): the
+// probes' (walk_runs: the bitmap probe of csrc/bitmap_join.cu and the bloom
+// probe of csrc/bloom.cu) and the bitmap build's (walk_share, at the end).
 //
 // Input: keys partitioned into nseg segments of seg_elems keys, each with a
 // starts row of cat_words words (entry j = the segment's keys of bucket < j,
@@ -22,6 +22,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <cub/block/block_scan.cuh>
 
 namespace hbrj {
 
@@ -200,6 +201,139 @@ __device__ __forceinline__ void walk_runs(const int* __restrict__ keys,
     cur = nxt;
   }
   if (!ready) wait_slices(bar);
+}
+
+// The build's walk: a range's runs shared evenly by the CTAs of a cluster.
+//
+// A range of nb buckets belongs to a cluster of `share` CTAs.  The range's
+// pieces, in segment order, are each segment's merged run [starts[s][j0],
+// starts[s][j1]) and the range's share of the segment's pad run (split
+// evenly over the nranges ranges, as seg_bounds splits it).  Their
+// concatenation is split evenly over the cluster's CTAs, and a CTA's part
+// evenly over its warps; a warp walks its part 16 bytes a lane.  So every
+// CTA and warp of a range walks as many keys as any other, however the keys
+// fall among the segments: a bucket holding a chunk's padding (PAD in a
+// junk bucket, where the geometry has no pad category) is walked by its
+// whole cluster.  Every bound is clamped to its segment.  The host's split
+// (ops/run_split.py plan_share_split, share_pieces) mirrors this walk.
+struct ShareGrid {
+  int nseg;          // segments (partition chunks)
+  int seg_elems;     // keys a segment
+  int cat_words;     // starts words a segment
+  int seg_buckets;   // buckets a segment (its pad category is seg_buckets)
+  int nb;            // buckets a range
+  int share;         // CTAs a range: the cluster's size (cluster c owns range c)
+
+  __host__ __device__ int nranges() const { return (seg_buckets + nb - 1) / nb; }
+  // Shared-memory bytes of the table share_table fills: nseg + 1 offsets
+  // (rounded up to 16 bytes) and nseg int4 bounds.
+  __host__ __device__ int table_bytes() const {
+    return ((nseg + 2) & ~1) * 8 + nseg * 16;
+  }
+};
+
+// Segment s's pieces for range `range` (buckets [j0, j1)): {run0, run1,
+// pad0, pad1}, clamped to [0, seg_elems] with run1 >= run0.
+__device__ __forceinline__ int4 share_bounds(const int* __restrict__ starts,
+                                             const ShareGrid& g, int range, int j0,
+                                             int j1, int s) {
+  const int* st = starts + (long long)s * g.cat_words;
+  const int run0 = min(max(__ldg(st + j0), 0), g.seg_elems);
+  const int run1 = max(run0, min(__ldg(st + j1), g.seg_elems));
+  const int p0 = min(max(__ldg(st + g.seg_buckets), 0), g.seg_elems);
+  const long long len = g.seg_elems - p0;
+  const int nr = g.nranges();
+  return make_int4(run0, run1, p0 + (int)(len * range / nr),
+                   p0 + (int)(len * (range + 1) / nr));
+}
+
+// Fills off[0..nseg] (off[s]: the concatenation's position of segment s's
+// first piece; off[nseg]: its length) and seg[0..nseg) (share_bounds) in
+// shared memory, a block-wide scan a batch of kThreads segments.  Every
+// thread calls it; it ends with a block barrier.
+template <int kThreads>
+__device__ __forceinline__ void share_table(const int* __restrict__ starts,
+                                            const ShareGrid& g, int range, int j0,
+                                            int j1, long long* off, int4* seg) {
+  using Scan = cub::BlockScan<long long, kThreads>;
+  __shared__ typename Scan::TempStorage temp;
+  long long carry = 0;
+  for (int b0 = 0; b0 < g.nseg; b0 += kThreads) {
+    const int s = b0 + (int)threadIdx.x;
+    long long len = 0;
+    if (s < g.nseg) {
+      const int4 b = share_bounds(starts, g, range, j0, j1, s);
+      seg[s] = b;
+      len = (long long)(b.y - b.x) + (b.w - b.z);
+    }
+    long long excl, total;
+    Scan(temp).ExclusiveSum(len, excl, total);
+    if (s < g.nseg) off[s] = carry + excl;
+    carry += total;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) off[g.nseg] = carry;
+  __syncthreads();
+}
+
+// A warp's walk of keys [i0, i1) of the segment at flat index base (a
+// multiple of 4): the 16-byte-aligned body kQuads quads a lane loaded before
+// any is visited, then the at most 3 + 3 keys before and after it.
+template <int kQuads, typename Visit>
+__device__ __forceinline__ void walk_interval(const int* __restrict__ keys,
+                                              long long base, int i0, int i1,
+                                              int lane, Visit& visit) {
+  const int4* quads = reinterpret_cast<const int4*>(keys) + (base >> 2);
+  const int q0 = (i0 + 3) >> 2, q1 = max(q0, i1 >> 2);
+  for (int q = q0 + lane; q < q1; q += kQuads * 32) {
+    int4 v[kQuads];
+#pragma unroll
+    for (int j = 0; j < kQuads; ++j) {
+      const int qi = q + j * 32;
+      v[j] = qi < q1 ? __ldg(quads + qi) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < kQuads; ++j) {
+      if (q + j * 32 < q1) {
+        visit(v[j].x);
+        visit(v[j].y);
+        visit(v[j].z);
+        visit(v[j].w);
+      }
+    }
+  }
+  const int head1 = min(i1, q0 << 2), tail0 = max(q1 << 2, head1);
+  const int nhead = head1 - i0, nedge = nhead + max(0, i1 - tail0);
+  if (lane < nedge)
+    visit(__ldg(keys + base + (lane < nhead ? i0 + lane : tail0 + (lane - nhead))));
+}
+
+// A warp walks positions [v0, v1) of the concatenation share_table laid
+// out, visit(key) for each key (every lane of the warp calls it).
+template <int kQuads, typename Visit>
+__device__ __forceinline__ void walk_share(const int* __restrict__ keys, const ShareGrid& g,
+                                           const long long* off, const int4* seg,
+                                           long long v0, long long v1, Visit visit) {
+  if (v0 >= v1) return;
+  const int lane = (int)threadIdx.x & 31;
+  int s = 0, hi = g.nseg;          // off[s] <= v0 < off[hi]
+  while (hi - s > 1) {
+    const int mid = (s + hi) >> 1;
+    if (off[mid] <= v0) s = mid; else hi = mid;
+  }
+  long long pos = v0;
+  while (pos < v1) {
+    while (off[s + 1] <= pos) ++s;
+    const long long o = off[s];
+    const int x0 = (int)(pos - o), x1 = (int)(min(v1, off[s + 1]) - o);
+    const int4 b = seg[s];
+    const int rl = b.y - b.x;
+    const long long base = (long long)s * g.seg_elems;
+    if (x0 < rl) walk_interval<kQuads>(keys, base, b.x + x0, b.x + min(x1, rl), lane, visit);
+    if (x1 > rl)
+      walk_interval<kQuads>(keys, base, b.z + max(x0 - rl, 0), b.z + (x1 - rl), lane, visit);
+    pos = o + x1;
+  }
 }
 
 }  // namespace hbrj

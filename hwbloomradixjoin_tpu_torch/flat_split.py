@@ -1,4 +1,5 @@
-"""Split the flat probes' time on the card: what bounds a grid-stride probe.
+"""Split the flat kernels' time on the card: what bounds a grid-stride probe
+or build.
 
     python -m hwbloomradixjoin_tpu_torch.flat_split
 
@@ -24,8 +25,32 @@ Variants:
 The base, ctas and crc variants must equal the port's plain twins bit for
 bit; the no_load and no_crc variants compute something else and are only
 timed.  Beside them, the port's own kernels through their wrappers at the
-same inputs (the staged classes, and the bloom probe's flat class).  Prints
-the card line, then one JSON line.  Runs on the GPU only.
+same inputs (the staged classes, and the bloom probe's flat class).
+
+Then the bitmap build, over three R partitions as the plans make them:
+PRO 16M ⋈ 128M's (6 bits, 64 slices of 32 KiB), 4d's (the same R at 12
+bits, 4,096 slices of 512 live bytes) and the flagship's (128M keys, 9
+bits, 512 slices of 32 KiB; a shuffled dense key range like the
+generator's), from ``BUILD_SOURCE`` (one ``nvcc``, beside the others):
+
+- ``flat_atomic``: the flat build, a zeroed bitmap and one atomicOr a key;
+- ``flat_store``: the same with a plain store of the key's bit in place of
+  the atomicOr (another result, only timed);
+- ``memset``: the zeroing alone;
+- ``flat_warp_or``: the atomicOr of a key's bit ORed first over the lanes of
+  its warp that hit the same word (``__match_any_sync``), one atomic a word;
+- ``staged_atomic_merge``: the port's staged walk and split, without the
+  cluster: each CTA ORs its non-zero slice words into a zeroed bitmap with
+  global atomics (``staged_atomic_q8``: 8 loads a lane in flight, not 4);
+
+and the port's kernel through its wrapper at the planned split; both
+staged builds with 1, 2, 4 and 8 CTAs a range, the port's also at 2 and 4
+times the planned buckets a range.  Each build variant is
+timed twice: by ``time_usec`` (a call's span, host launch included, as
+``chip_smoke.py`` times the kernels) and by its device time in a
+``torch.profiler`` trace (``_device``: kernels and memsets a call).  Every variant but ``flat_store`` and
+``memset`` must equal the twin bit for bit.  Prints the card line, then one
+JSON line.  Runs on the GPU only.
 """
 
 from __future__ import annotations
@@ -223,6 +248,133 @@ int split_bloom(const int* keys, long long n, const int* f, int* out,
 }  // extern "C"
 """
 
+BUILD_SOURCE = r"""
+#include <cuda_runtime.h>
+
+#include "run_walk.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// mode 0: atomicOr; 1: a plain store of the bit; 3: atomicOr of the bits
+// of the warp's lanes that hit one word, by one lane
+template <int kMode>
+__device__ __forceinline__ void deposit(int key, unsigned* __restrict__ bm, int lo,
+                                        int hi, int shift, long long sl_words) {
+  const bool ok = key >= lo && key <= hi;
+  const unsigned norm = (unsigned)key - (unsigned)lo;
+  const long long w = (long long)(norm >> shift) * sl_words
+                      + ((norm & ((1u << shift) - 1u)) >> 5);
+  const unsigned bit = 1u << (norm & 31u);
+  if (kMode == 0) {
+    if (ok) atomicOr(bm + w, bit);
+  } else if (kMode == 1) {
+    if (ok) bm[w] = bit;
+  } else {
+    const unsigned long long addr = ok ? (unsigned long long)w : ~0ull;
+    const unsigned peers = __match_any_sync(__activemask(), addr);
+    const unsigned bits = __reduce_or_sync(peers, ok ? bit : 0u);
+    if (ok && __ffs(peers) - 1 == (int)(threadIdx.x & 31)) atomicOr(bm + w, bits);
+  }
+}
+
+template <int kMode>
+__global__ void flat_build(const int4* __restrict__ r, long long n4, unsigned* bm,
+                           int lo, int hi, int shift, long long sl_words) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * kThreads) {
+    const int4 v = r[i];
+    deposit<kMode>(v.x, bm, lo, hi, shift, sl_words);
+    deposit<kMode>(v.y, bm, lo, hi, shift, sl_words);
+    deposit<kMode>(v.z, bm, lo, hi, shift, sl_words);
+    deposit<kMode>(v.w, bm, lo, hi, shift, sl_words);
+  }
+}
+
+// The port's staged walk (csrc/bitmap_join.cu bitmap_build_runs) with the
+// cluster's merge replaced by global atomics into a zeroed bitmap; kQ
+// 16-byte loads a lane in flight.
+template <int kQ>
+__global__ void __launch_bounds__(kThreads)
+staged_atomic(const int* __restrict__ r, const int* __restrict__ starts, hbrj::ShareGrid g,
+              unsigned* __restrict__ bm, int lo, int hi, int shift, long long sl_words,
+              int live) {
+  extern __shared__ int4 smem4[];
+  unsigned* slices = reinterpret_cast<unsigned*>(smem4);
+  long long* off = reinterpret_cast<long long*>(smem4 + g.nb * live / 4);
+  int4* seg = reinterpret_cast<int4*>(off + ((g.nseg + 2) & ~1));
+  const int rank = (int)(blockIdx.x % g.share);
+  const int range = (int)(blockIdx.x / g.share);
+  const int j0 = range * g.nb, j1 = min(j0 + g.nb, g.seg_buckets), nbk = j1 - j0;
+  for (int i = threadIdx.x; i < nbk * live / 4; i += kThreads) smem4[i] = make_int4(0, 0, 0, 0);
+  hbrj::share_table<kThreads>(starts, g, range, j0, j1, off, seg);
+  const long long T = off[g.nseg];
+  const long long c0 = T * rank / g.share, c1 = T * (rank + 1) / g.share;
+  const int warp = (int)threadIdx.x / 32, nw = kThreads / 32;
+  const unsigned mask = (1u << shift) - 1u;
+  hbrj::walk_share<kQ>(r, g, off, seg, c0 + (c1 - c0) * warp / nw,
+                      c0 + (c1 - c0) * (warp + 1) / nw, [&](int key) {
+    if (key < lo || key > hi) return;
+    const unsigned norm = (unsigned)key - (unsigned)lo;
+    const unsigned b = (norm >> shift) - (unsigned)j0;
+    if (b < (unsigned)nbk) atomicOr(slices + b * live + ((norm & mask) >> 5), 1u << (norm & 31u));
+  });
+  __syncthreads();
+  for (int i = threadIdx.x; i < nbk * live; i += kThreads) {
+    const unsigned v = slices[i];
+    if (v) atomicOr(bm + (long long)(j0 + i / live) * sl_words + i % live, v);
+  }
+}
+
+unsigned grid(long long n4, int sms) {
+  const long long want = (n4 + kThreads - 1) / kThreads, cap = (long long)sms * 8;
+  return (unsigned)(want < 1 ? 1 : (want < cap ? want : cap));
+}
+
+}  // namespace
+
+extern "C" {
+
+// mode: 0 flat_atomic, 1 flat_store, 2 memset, 3 flat_warp_or
+int split_build_flat(const int* r, long long n, int* bm, long long nwords, int lo, int hi,
+                     int shift, long long sl_words, int mode, int sms, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(bm, 0, (size_t)nwords * sizeof(int), stream);
+  if (err || mode == 2) return (int)err;
+  const int4* r4 = reinterpret_cast<const int4*>(r);
+  unsigned* b = reinterpret_cast<unsigned*>(bm);
+  const unsigned gr = grid(n / 4, sms);
+  if (mode == 0) flat_build<0><<<gr, kThreads, 0, stream>>>(r4, n / 4, b, lo, hi, shift, sl_words);
+  if (mode == 1) flat_build<1><<<gr, kThreads, 0, stream>>>(r4, n / 4, b, lo, hi, shift, sl_words);
+  if (mode == 3) flat_build<3><<<gr, kThreads, 0, stream>>>(r4, n / 4, b, lo, hi, shift, sl_words);
+  return (int)cudaGetLastError();
+}
+
+int split_build_staged_atomic(const int* r, const int* starts, int* bm, long long nwords,
+                              int lo, int hi, int shift, long long sl_words, int nseg,
+                              int seg_elems, int cat_words, int seg_buckets, int nb,
+                              int share, int live, int quads,
+                              cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(bm, 0, (size_t)nwords * sizeof(int), stream);
+  if (err) return (int)err;
+  const hbrj::ShareGrid g{nseg, seg_elems, cat_words, seg_buckets, nb, share};
+  const int smem = nb * live * 4 + g.table_bytes();
+  auto kernel = quads == 8 ? staged_atomic<8> : staged_atomic<4>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return (int)err;
+  kernel<<<g.nranges() * share, kThreads, smem, stream>>>(
+      r, starts, g, reinterpret_cast<unsigned*>(bm), lo, hi, shift, sl_words, live);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+"""
+
+BUILD_FLAT = {"flat_atomic": 0, "flat_store": 1, "memset": 2,
+              "flat_warp_or": 3}
+BUILD_SHARES = (1, 2, 4, 8)
+BUILD_NB = (1, 2, 4)           # the planned buckets a range, times these
+
 VARIANTS = {   # name -> (nvcc -D flags, checked against the twin)
     "base": ((), True),
     "ctas4": (("CTAS_PER_SM=4",), True),
@@ -236,17 +388,24 @@ BITMAP_VARIANTS = ("base", "ctas4", "ctas32", "no_load")
 
 
 def build_variants() -> dict:
-    """name -> the loaded library of each variant (built in parallel)."""
+    """name -> the loaded library of each variant, and "build" -> the build
+    variants' library (built in parallel)."""
     from hwbloomradixjoin_tpu_torch.kernels import _build
 
     out_dir = _build.BUILD_DIR / "flat_split"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / "flat_split.cu"
     src.write_text(SOURCE)
+    build_src = out_dir / "build_split.cu"
+    build_src.write_text(BUILD_SOURCE)
     libs = {name: out_dir / f"{name}.so" for name in VARIANTS}
+    build_lib = out_dir / "build.so"
     _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
                       *(f"-D{d}" for d in VARIANTS[name][0]), "-o", str(lib),
-                      str(src)] for name, lib in libs.items()])
+                      str(src)] for name, lib in libs.items()]
+                    + [[_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                        f"-I{_build.CSRC_DIR}", "-o", str(build_lib),
+                        str(build_src)]])
     vp, ll, i, u = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
         ctypes.c_uint
     loaded = {}
@@ -256,7 +415,99 @@ def build_variants() -> dict:
         dll.split_bloom.argtypes = [vp, ll, vp, vp, vp, u, u, u, i, i, vp]
         dll.split_bitmap.restype = dll.split_bloom.restype = ctypes.c_int
         loaded[name] = dll
+    dll = ctypes.CDLL(str(build_lib))
+    dll.split_build_flat.argtypes = [vp, ll, vp, ll, i, i, i, ll, i, i, vp]
+    dll.split_build_staged_atomic.argtypes = [vp, vp, vp, ll, i, i, i, ll,
+                                              *[i] * 8, vp]
+    dll.split_build_flat.restype = ctypes.c_int
+    dll.split_build_staged_atomic.restype = ctypes.c_int
+    loaded["build"] = dll
     return loaded
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time a call of fn (kernels and memsets, torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA)
+    return busy / calls / 1e3
+
+
+def time_builds(dll, r_part, r_starts, lo, hi, part_bits, shift, sl_rows,
+                sms, stream) -> dict:
+    """variant -> ms of the build variants over one R partition; each exact
+    variant's bitmap must equal the twin's."""
+    import dataclasses
+
+    import torch
+    from hwbloomradixjoin_tpu_torch.kernels import _build
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+    from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
+
+    dev = r_part.device
+    args = (r_part, lo, hi, part_bits, shift, sl_rows)
+    want = B.build_bitmap(*args)
+    bm = torch.empty_like(want)
+    sync = torch.empty(2, dtype=torch.int32, device=dev)
+    planned = B.build_split(r_part, r_starts, shift, part_bits, sms)
+    live = B.live_words(shift)
+    out = {}
+
+    def check(name, rc, exact=True):
+        if rc:
+            raise RuntimeError(f"flat_split: {name}: CUDA error {rc}")
+        if exact and not torch.equal(bm, want):
+            raise AssertionError(f"build {name} differs from the twin")
+
+    def flat(mode):
+        return dll.split_build_flat(r_part.data_ptr(), r_part.numel(),
+                                    bm.data_ptr(), bm.numel(), lo, hi, shift,
+                                    sl_rows * 128, mode, sms, stream)
+
+    def staged_atomic(split, quads=4):
+        return dll.split_build_staged_atomic(
+            r_part.data_ptr(), r_starts.data_ptr(), bm.data_ptr(), bm.numel(),
+            lo, hi, shift, sl_rows * 128, *split.args(), live, quads, stream)
+
+    def port(split):
+        _build.launch("bitmap_build", "hbrj_bitmap_build", dev,
+                      r_part.data_ptr(), r_part.numel(), r_starts.data_ptr(),
+                      bm.data_ptr(), bm.numel(), sync.data_ptr(), lo, hi,
+                      shift, sl_rows * 128, *split.args(), live)
+        return 0
+
+    runs = {name: (lambda m=mode: flat(m), name in ("flat_atomic",
+                                                    "flat_warp_or"))
+            for name, mode in BUILD_FLAT.items()}
+    runs["staged_atomic_merge"] = (lambda: staged_atomic(planned), True)
+    runs["staged_atomic_q8"] = (lambda: staged_atomic(planned, 8), True)
+    runs["port_planned"] = (lambda: port(planned), True)
+    for share in BUILD_SHARES:
+        split = dataclasses.replace(planned, share=share)
+        runs[f"atomic_share{share}"] = (lambda sp=split: staged_atomic(sp),
+                                         True)
+        for times in BUILD_NB:
+            nb = planned.nb * times
+            if nb > planned.seg_buckets or nb * 4 * live > B.BUILD_MAX_STAGE:
+                continue
+            split = dataclasses.replace(planned, share=share, nb=nb)
+            runs[f"port_nb{nb}_share{share}"] = (lambda sp=split: port(sp),
+                                                 True)
+    for name, (fn, exact) in runs.items():
+        out[name] = time_usec(fn, dev) / 1e3
+        check(name, fn(), exact)
+        out[f"{name}_device"] = device_ms(fn)
+    out["split"] = dataclasses.asdict(planned)
+    return out
 
 
 def main() -> None:
@@ -267,6 +518,7 @@ def main() -> None:
     from hwbloomradixjoin_tpu_torch.data import generator as G
     from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
     from hwbloomradixjoin_tpu_torch.ops import bloom_pallas as BP
+    from hwbloomradixjoin_tpu_torch.ops import radix as X
     from hwbloomradixjoin_tpu_torch.ops import run_split
     from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
 
@@ -309,7 +561,35 @@ def main() -> None:
         result["bitmap"][name] = ms
     result["bitmap"]["port_staged"] = time_usec(
         lambda: B.bitmap_probe_count(*probe, s_starts), dev) / 1e3
-    del plan, m, bm, s_part, s_starts, probe
+    rg = plan.rgeom
+    result["build"] = {"pro": time_builds(
+        libs["build"], m["r_part"], m["r_starts"], 1, 16_000_000,
+        rg.part_bits, rg.shift, plan.r_sl_rows, sms, stream)}
+    print(json.dumps(result["build"]["pro"]), flush=True)
+    # 4d's build: the same R at 12 bits (4,096 slices of 512 live bytes)
+    r4, st4 = X.partition_pass(plan.rk_in, X.RadixGeom(
+        chunk_rows=rg.chunk_rows, part_bits=12, lo=1, hi=16_000_000,
+        shift=12, pad_cat=rg.pad_cat))
+    result["build"]["4d"] = time_builds(libs["build"], r4, st4, 1,
+                                        16_000_000, 12, 12, 8, sms, stream)
+    print(json.dumps(result["build"]["4d"]), flush=True)
+    del plan, m, bm, s_part, s_starts, probe, r4, st4
+    # the flagship's R: 128M keys, a shuffled dense range, at its build
+    # geometry as plan_radix_join plans it
+    hi = 128_000_000
+    pb, shift, slr = B.plan_geometry(1, hi)
+    rb, rshift, rslr = B.plan_build_geometry(1, hi, pb, shift, slr)
+    rk = torch.randperm(hi, device=dev, dtype=torch.int64)
+    rk_in, rgeom = B.plan_bitmap_build((rk + 1).to(torch.int32), 1, hi, rb,
+                                       rshift, rslr, device=dev)
+    del rk
+    r_part, r_starts = X.partition_pass(rk_in, rgeom)
+    del rk_in
+    result["build"]["flagship"] = time_builds(
+        libs["build"], r_part, r_starts, 1, hi, rb, rshift, rslr, sms, stream)
+    print(json.dumps(result["build"]["flagship"]), flush=True)
+    del r_part, r_starts
+    torch.cuda.empty_cache()
 
     # 4e: S at q = 0.01 hash-partitioned by 10 of 18 block bits, m = 2^27
     rk, _, sk, _ = G.build_workload(G.WorkloadParams(

@@ -57,7 +57,8 @@ _SIGNATURES = {
     "hbrj_bloom_probe": [_vp, _ll, _vp, _vp, _vp, _vp, _u, _u, _u, _i, _i, _i,
                          _i, _i, _i, _i, _i, _i, _ll, _vp],
     "hbrj_compact": [_vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
-    "hbrj_bitmap_build": [_vp, _ll, _vp, _ll, _i, _i, _i, _ll, _vp],
+    "hbrj_bitmap_build": [_vp, _ll, _vp, _vp, _ll, _vp, _i, _i, _i, _ll, _i,
+                          _i, _i, _i, _i, _i, _i, _vp],
     "hbrj_bitmap_probe": [_vp, _vp, _ll, _vp, _vp, _i, _i, _i, _ll, _i, _i,
                           _i, _i, _i, _i, _i, _i, _i, _vp],
     "hbrj_table_build": [_vp, _vp, _vp, _i, _i, _i, _vp, _vp, _i, _i, _i, _i,
@@ -76,6 +77,7 @@ _QUERIES = {"hbrj_partition_scratch": ([_ll, _i, _i, _i, _i, _i], _ll),
             "hbrj_gathered_probe_scratch": ([_i, _i], _ll),
             "hbrj_gathered_probe_class": ([_ll, _i, _vp, _vp], _i),
             "hbrj_bitmap_probe_per_sm": ([_i, _i], _i),
+            "hbrj_bitmap_build_per_sm": ([_i, _i, _i], _i),
             "hbrj_bloom_probe_per_sm": ([_i, _ll, _i], _i)}
 
 _lock = threading.Lock()

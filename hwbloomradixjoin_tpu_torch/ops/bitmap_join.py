@@ -20,10 +20,12 @@ the layout.
 ``csrc/bitmap_join.cu`` for tensors on the card and run their plain twins
 (``build_bitmap``, ``bitmap_probe_count_plain``) for tensors on the CPU.
 Unlike the TPU kernels they need no DMA window descriptors
-(``derive_descs``): the build ORs every in-range key of partitioned R, and
-the probe takes the S partition's ``starts`` (chunks, or pass-2 regions)
-and walks each bucket range's runs with the range's bitmap slices in
-shared memory (``ops/run_split.py``), every key counted exactly once.
+(``derive_descs``): the build takes the R partition's ``starts`` and ORs
+every in-range key of each bucket range's runs into the range's slices in
+shared memory, a cluster of CTAs sharing each range's runs evenly; the
+probe takes the S partition's ``starts`` (chunks, or pass-2 regions) and
+walks each bucket range's runs with the range's bitmap slices in shared
+memory (``ops/run_split.py``), every key counted exactly once.
 """
 
 from __future__ import annotations
@@ -59,6 +61,11 @@ PROBE_LANE_KEYS = 16
 PROBE_MAX_STAGE = 128 * 1024
 PROBE_MIN_SLICE = 4 * 1024
 PROBE_MIN_KEYS_A_WORD = 8
+# The build kernel's staging: at most 128 KiB of one bucket's live words (a
+# shift up to 20; the flat class, atomicOr into a zeroed bitmap, past it),
+# and at most 200 KiB of slices and walk table a CTA.
+BUILD_MAX_STAGE = 128 * 1024
+BUILD_MAX_SMEM = 200 * 1024
 
 
 def plan_geometry(lo: int, hi: int, num_radix_bits: Optional[int] = None,
@@ -107,13 +114,18 @@ def plan_build_geometry(lo: int, hi: int, part_bits: int, shift: int,
 
 
 def build_bitmap(r_key: torch.Tensor, lo: int, hi: int, part_bits: int,
-                 shift: int, sl_rows: int) -> torch.Tensor:
+                 shift: int, sl_rows: int,
+                 starts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain twin of the build: exact bitmap of R's keys in [lo, hi].
 
     Global bit of a key = bucket * sl_rows*4096 + (norm & (2^shift - 1)); the
     bits are set in a bool map and packed 32 to a word (bit j of a word is
     weight 2^j), so the result is the OR of the keys' bits for any multiset.
+    starts: the R partition's starts, if r_key is partitioned; its size is
+    checked (build_split) and it is otherwise unread.
     """
+    if starts is not None:
+        build_split(r_key, starts, shift, part_bits)
     slice_bits = sl_rows * LANES * 32
     nbits = (1 << part_bits) * slice_bits
     key = r_key.reshape(-1).long()
@@ -129,20 +141,44 @@ def build_bitmap(r_key: torch.Tensor, lo: int, hi: int, part_bits: int,
     return words.to(torch.int32).view((1 << part_bits) * sl_rows, LANES)
 
 
+def build_split(r_part: torch.Tensor, starts: torch.Tensor, shift: int,
+                part_bits: int, sms: int = run_split.H100_SMS):
+    """The build kernel's split of partitioned R (run_split.plan_share_split)
+    or None for the flat class; raises on starts of the wrong size."""
+    runs = run_split.segment_runs(starts, r_part, part_bits)
+    return run_split.plan_share_split(runs, part_bits, 4 * live_words(shift),
+                                      BUILD_MAX_STAGE, BUILD_MAX_SMEM, sms)
+
+
 def bitmap_build(r_part: torch.Tensor, lo: int, hi: int, part_bits: int,
-                 shift: int, sl_rows: int) -> torch.Tensor:
+                 shift: int, sl_rows: int,
+                 starts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Build the exact bitmap from partitioned R: (F * sl_rows, 128) int32.
 
+    starts: the R partition's starts (partition_pass's second output at
+    this geometry).  The card requires it: the kernel walks each bucket
+    range's runs through it.  The CPU twin checks its size and ignores it.
     Replaces the Pallas bitmap_build_pallas (bitmap_join.py:449).
     """
     if r_part.device.type == "cpu":
-        return build_bitmap(r_part, lo, hi, part_bits, shift, sl_rows)
-    _build.check_cuda(r_part)
+        return build_bitmap(r_part, lo, hi, part_bits, shift, sl_rows, starts)
+    if starts is None:
+        raise ValueError("bitmap_build on the card needs the R partition's "
+                         "starts")
+    _build.check_cuda(r_part, starts)
+    if hi - lo >= (1 << part_bits) << shift:
+        raise ValueError(f"key range [{lo}, {hi}] past {1 << part_bits} "
+                         f"buckets of 2^{shift} keys")
+    split = build_split(r_part, starts, shift, part_bits,
+                        run_split.card_sms(r_part.device))
+    grid = (0,) * 6 if split is None else split.args()
     bm = torch.empty(((1 << part_bits) * sl_rows, LANES), dtype=torch.int32,
                      device=r_part.device)
+    sync = torch.empty(2, dtype=torch.int32, device=r_part.device)
     _build.launch("bitmap_build", "hbrj_bitmap_build", r_part.device,
-                  r_part.data_ptr(), r_part.numel(), bm.data_ptr(), bm.numel(),
-                  lo, hi, shift, sl_rows * LANES)
+                  r_part.data_ptr(), r_part.numel(), starts.data_ptr(),
+                  bm.data_ptr(), bm.numel(), sync.data_ptr(), lo, hi, shift,
+                  sl_rows * LANES, *grid, live_words(shift))
     return bm
 
 
@@ -268,10 +304,11 @@ class RadixJoinPlan:
     def r_partition(self):
         return radix_ops.partition_pass(self.rk_in, self.rgeom)
 
-    def build(self, r_part: torch.Tensor) -> torch.Tensor:
+    def build(self, r_part: torch.Tensor,
+              starts: Optional[torch.Tensor] = None) -> torch.Tensor:
         g = self.rgeom
         return bitmap_build(r_part, self.lo, self.hi, g.part_bits, g.shift,
-                            self.r_sl_rows)
+                            self.r_sl_rows, starts)
 
     def s_effective(self) -> torch.Tensor:
         """S as the partition sees it: compacted survivors, or S itself."""
@@ -293,7 +330,7 @@ class RadixJoinPlan:
                                   g.part_bits, self.sl_rows, starts)
 
     def full(self) -> torch.Tensor:
-        bitmap = self.build(self.r_partition()[0])
+        bitmap = self.build(*self.r_partition())
         return self.probe(bitmap, *self.s_partition(self.s_effective()))
 
     def full_count(self) -> int:
@@ -301,9 +338,10 @@ class RadixJoinPlan:
 
     def _intermediates(self) -> dict:
         if not self._cache:
-            r_part, _ = self.r_partition()
+            r_part, r_starts = self.r_partition()
             s_eff = self.s_effective()
-            self._cache.update(r_part=r_part, bitmap=self.build(r_part),
+            self._cache.update(r_part=r_part, r_starts=r_starts,
+                               bitmap=self.build(r_part, r_starts),
                                s_eff=s_eff,
                                s_part=self.s_partition(s_eff))
         return self._cache
@@ -312,7 +350,7 @@ class RadixJoinPlan:
         """name -> zero-argument callable re-running that phase, join order."""
         m = self._intermediates()
         fns = {"r_partition": self.r_partition,
-               "build": lambda: self.build(m["r_part"])}
+               "build": lambda: self.build(m["r_part"], m["r_starts"])}
         if self.cap_rows is not None:
             fns["compact"] = self.s_effective
         fns["s_partition"] = lambda: self.s_partition(m["s_eff"])

@@ -239,10 +239,11 @@ class TwoPassPlan:
     def r_partition(self):
         return radix_ops.partition_pass(self.rk_in, self.rgeom)
 
-    def build(self, r_part: torch.Tensor) -> torch.Tensor:
+    def build(self, r_part: torch.Tensor,
+              starts: Optional[torch.Tensor] = None) -> torch.Tensor:
         return bitmap_join.bitmap_build(r_part, self.lo, self.hi,
                                         self.part_bits, self.shift,
-                                        self.sl_rows)
+                                        self.sl_rows, starts)
 
     def s_partition(self):
         return radix_ops.partition_pass(self.sk_in, self.p1geom)
@@ -257,7 +258,7 @@ class TwoPassPlan:
             s2[1], seg_bits=self.pass2.b2)
 
     def full(self) -> torch.Tensor:
-        bitmap = self.build(self.r_partition()[0])
+        bitmap = self.build(*self.r_partition())
         return self.probe(bitmap, self.s_pass2(self.s_partition()))
 
     def full_count(self) -> int:
@@ -265,9 +266,10 @@ class TwoPassPlan:
 
     def _intermediates(self) -> dict:
         if not self._cache:
-            r_part, _ = self.r_partition()
+            r_part, r_starts = self.r_partition()
             s1 = self.s_partition()
-            self._cache.update(r_part=r_part, bitmap=self.build(r_part),
+            self._cache.update(r_part=r_part, r_starts=r_starts,
+                               bitmap=self.build(r_part, r_starts),
                                s1=s1, s2=self.s_pass2(s1))
         return self._cache
 
@@ -275,7 +277,7 @@ class TwoPassPlan:
         """name -> zero-argument callable re-running that phase, join order."""
         m = self._intermediates()
         return {"r_partition": self.r_partition,
-                "build": lambda: self.build(m["r_part"]),
+                "build": lambda: self.build(m["r_part"], m["r_starts"]),
                 "s_partition": self.s_partition,
                 "s_pass2": lambda: self.s_pass2(m["s1"]),
                 "probe": lambda: self.probe(m["bitmap"], m["s2"])}

@@ -65,7 +65,7 @@ def test_build_matches_jax_build_bitmap(case):
     assert (plan.rgeom.part_bits, plan.rgeom.shift, plan.r_sl_rows) == \
         (pb, shift, slr)
     assert plan.rk_in.numel() % (8 * 128) == 0
-    got = plan.build(plan.r_partition()[0])
+    got = plan.build(*plan.r_partition())
     assert got.dtype == torch.int32 and got.shape == tuple(want.shape)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # the twin alone agrees too, on R in any order
@@ -268,3 +268,96 @@ def test_probe_split_walks_every_run_once(monkeypatch, shape):
         with pytest.raises(ValueError):
             TBP.bloom_probe_prune(words, part, args, starts=st[:-128],
                                   part_bits=bits)
+
+
+# The build's main-path shapes: chunks, bucket bits, shift, keys of R (the
+# rest of the last chunk is PAD, in PAD's bucket: no pad category), and the
+# split the planner gives (buckets a range, CTAs a range).  PRO 16M x 128M
+# (64 slices of 32 KiB), 4d (4,096 slices of 512 live bytes) and the
+# flagship (128M keys, 512 slices of 32 KiB, as plan_radix_join plans it).
+BUILD_SHAPES = {
+    "PRO": (31, 6, 18, 16_000_000, 1, 8),
+    "4d": (31, 12, 12, 16_000_000, 32, 4),
+    "flagship": (245, 9, 18, 128_000_000, 1, 1),
+}
+
+
+@pytest.mark.parametrize("shape", list(BUILD_SHAPES))
+def test_build_split_walks_every_key_once(shape):
+    """The host's split of the staged build at each main-path shape (sizes
+    only, a starts table of even runs with the chunks' padding in PAD's
+    bucket): its ranges and CTAs a range; in the padding's
+    range and three others, the walks of the range's CTAs
+    (run_split.share_pieces, the kernel's own arithmetic) tile each chunk's
+    merged run and the range's share of its pad run once, and each CTA
+    walks an even part of the range (the padding's range too)."""
+    nseg, bits, shift, n_r, nb, share = BUILD_SHAPES[shape]
+    chunk = TB.CHUNK_ROWS * 128
+    fs = 1 << bits
+    cat_words = TX.RadixGeom(part_bits=bits).cat_rows * 128
+    keys = torch.empty(nseg * chunk, dtype=torch.int32, device="meta")
+    starts = torch.empty(nseg * cat_words, dtype=torch.int32, device="meta")
+    split = TB.build_split(keys, starts, shift, bits)
+    pad_bucket = ((2**31 - 1) >> shift) % fs
+    assert (split.nb, split.share) == (nb, share)
+    assert split.ctas >= 3 * run_split.H100_SMS
+    assert split.nb * 4 * TB.live_words(shift) + split.table_bytes \
+        <= TB.BUILD_MAX_SMEM
+    counts = np.full((nseg, fs), chunk // fs, np.int64)
+    counts[-1] = (n_r - (nseg - 1) * chunk) // fs
+    counts[-1, pad_bucket] += chunk - counts[-1].sum()
+    table = np.zeros((nseg, cat_words), np.int64)
+    table[:, 1:fs + 1] = np.cumsum(counts, axis=1)
+    table[:, fs + 1:] = chunk
+    nr = split.nranges
+    for rng in {pad_bucket // split.nb, 0, nr // 2, nr - 1}:
+        j0, j1 = rng * split.nb, (rng + 1) * split.nb
+        want = [(s, table[s, j0], table[s, j1]) for s in range(nseg)]
+        total = sum(b - a for _, a, b in want)
+        seen, walked = [], []
+        for rank in range(split.share):
+            cta = rng * split.share + rank
+            pieces = [p for p in run_split.share_pieces(split, table, cta)
+                      if p[1] < p[2]]
+            seen += pieces
+            walked.append(sum(b - a for _, a, b in pieces))
+        assert max(walked) - min(walked) <= 1 and sum(walked) == total
+        seen.sort()
+        merged = [list(seen[0])]
+        for s, a, b in seen[1:]:
+            if s == merged[-1][0] and a == merged[-1][2]:
+                merged[-1][2] = b
+            else:
+                merged.append([s, a, b])
+        assert [tuple(m) for m in merged] == [w for w in want if w[1] < w[2]]
+
+
+@pytest.mark.parametrize("pad_cat", [False, True])
+def test_bitmap_build_takes_starts_on_the_cpu(pad_cat):
+    """On the CPU the build with R's starts equals the build without them
+    and the twin (keys at lo - 1, hi + 1, PAD and duplicates in R); starts
+    of the wrong size raise, from the wrapper and from the twin."""
+    rng = np.random.default_rng(int(pad_cat))
+    lo, hi = 1, 60_000
+    rk = rng.integers(lo, hi + 1, 3 * 8 * 128 - 100)
+    rk[::7] = rk[1::7][:len(rk[::7])]
+    rk[::11] = lo - 1
+    rk[::13] = hi + 1
+    rk[::17] = PAD
+    pb, shift, slr = TB.plan_geometry(lo, hi, 4)
+    part, st = TX.partition_pass(
+        TX._chunk_pad(rk.astype(np.int32), 8 * 128, "cpu"),
+        TX.RadixGeom(chunk_rows=8, part_bits=pb, lo=lo, hi=hi, shift=shift,
+                     pad_cat=pad_cat))
+    want = TB.build_bitmap(part, lo, hi, pb, shift, slr)
+    assert torch.equal(TB.bitmap_build(part, lo, hi, pb, shift, slr, st),
+                       want)
+    assert torch.equal(TB.bitmap_build(part, lo, hi, pb, shift, slr), want)
+    assert torch.equal(TB.build_bitmap(part, lo, hi, pb, shift, slr, st),
+                       want)
+    assert TB.build_split(part, st, shift, pb) is not None
+    for bad in (st[:-128], st.reshape(-1)[:-1]):
+        with pytest.raises(ValueError):
+            TB.bitmap_build(part, lo, hi, pb, shift, slr, bad)
+        with pytest.raises(ValueError):
+            TB.build_bitmap(part, lo, hi, pb, shift, slr, bad)

@@ -12,7 +12,14 @@ payloads, the hash-mode partition, pass 2 in both modes (all PAD, one chunk,
 empty buckets, b2 = 1, 2, 3, 6 and 10, spans of several chunks whose windows
 do not divide into tiles, runs of 0 and 1 keys, regions truncated at their
 capacity), the bloom probe (k = 1..8, B = 32 to 2^17, no survivors),
-the prune past the TPU's limits (2,049 chunks, a hot key), the bitmap and
+the prune past the TPU's limits (2,049 chunks, a hot key), the bitmap build
+walking R's runs in every split (1 to 8 CTAs a range, 1 to 64 buckets a
+range; pad category on and off, a duplicate-heavy
+R, keys at lo - 1, lo, hi and hi + 1, PAD and negative keys, empty buckets
+and one bucket holding every key, 4d's and the flagship's geometries, the
+slice padding over a sentinel-filled allocator, runs at another geometry
+and in-range keys in the pad run, which take the last CTA's global pass;
+its flat class past the staging budget, no starts refused), the bitmap and
 bloom probes walking a partition's runs in every class and split (bucket
 ranges of 1, 3 and 4 buckets, spans of 1, 2 and every segment, 1 to 512
 lanes a run; chunks and pass-2 regions with their tails; runs of 0 and 1
@@ -125,8 +132,8 @@ def test_build_and_probe_kernels_match_twins(cuda, lo, hi, bits):
     r_in = X._chunk_pad(rk, 64 * 128, cuda)
     rgeom = X.RadixGeom(chunk_rows=64, part_bits=rb, lo=lo, hi=hi,
                         shift=rshift, pad_cat=not X.pad_cat_safe(lo, hi))
-    r_part = X.partition_pass(r_in, rgeom)[0]
-    bm = B.bitmap_build(r_part, lo, hi, rb, rshift, rslr)
+    r_part, r_starts = X.partition_pass(r_in, rgeom)
+    bm = B.bitmap_build(r_part, lo, hi, rb, rshift, rslr, r_starts)
     assert torch.equal(bm, B.build_bitmap(r_part, lo, hi, rb, rshift, rslr))
 
     sk = torch.cat([torch.from_numpy(rng.choice(rk, 5000)),
@@ -1135,6 +1142,169 @@ def test_bitmap_probe_flat_class_and_needs_starts(cuda, bits, nchunks, why):
         B.bitmap_probe_count(bm, part, lo, shift, pb, slr)
     with pytest.raises(ValueError, match="starts"):
         B.bitmap_probe_count(bm, part, lo, shift, pb, slr, starts[:-128])
+
+
+# Splits forced on the staged build (ops/run_split.py plan_share_split):
+# the planner's own; one CTA a range; 3 CTAs over 4-bucket ranges; 8 CTAs a
+# bucket; 64 buckets a range (as many as 128 KiB holds) over 8 CTAs.
+BUILD_SPLITS = {"planned": {}, "share1": dict(nb=1, share=1),
+                "share3_nb4": dict(nb=4, share=3),
+                "share8_nb1": dict(nb=1, share=8),
+                "one_range": dict(nb=64, share=8)}
+
+
+def _force_build_split(monkeypatch, name):
+    planned = run_split.plan_share_split
+    force = BUILD_SPLITS[name]
+
+    def forced(runs, seg_bits, slice_bytes, *args):
+        split = planned(runs, seg_bits, slice_bytes, *args)
+        if split is None or not force:
+            return split
+        nb = min(force["nb"], split.seg_buckets,
+                 max(1, B.BUILD_MAX_STAGE // slice_bytes))
+        return dataclasses.replace(split, nb=nb, share=force["share"])
+    monkeypatch.setattr(run_split, "plan_share_split", forced)
+
+
+def _build_case(cuda, rk, lo, hi, bits, chunk_rows, pad_cat=None,
+                geom_lo=None, geom_hi=None):
+    """R (numpy) chunk-padded and partitioned at the build geometry of
+    [lo, hi] (at `bits` partition bits); pad_cat None as the plans choose
+    it.  geom_lo / geom_hi partition at another range of the same fan-out.
+    Returns the partition, its starts and the geometry."""
+    pb, shift, slr = B.plan_geometry(lo, hi, bits)
+    rb, rshift, rslr = B.plan_build_geometry(lo, hi, pb, shift, slr)
+    chunk = chunk_rows * 128
+    geom = X.RadixGeom(chunk_rows=chunk_rows, part_bits=rb,
+                       lo=lo if geom_lo is None else geom_lo,
+                       hi=hi if geom_hi is None else geom_hi, shift=rshift,
+                       pad_cat=not X.pad_cat_safe(lo, hi)
+                       if pad_cat is None else pad_cat)
+    part, starts = X.partition_pass(X._chunk_pad(rk, chunk, cuda), geom)
+    return part, starts, (rb, rshift, rslr)
+
+
+def _build_check(cuda, part, starts, lo, hi, geo):
+    """The kernel's bitmap, built into an allocator block filled with a
+    sentinel first, equals the twin's, its slice padding is zero and the
+    launch counted once."""
+    rb, rshift, rslr = geo
+    n = (1 << rb) * rslr * 128
+    torch.full((n,), 0x5A5A5A5A, dtype=torch.int32, device=cuda)  # freed
+    _build.reset_launches()
+    got = B.bitmap_build(part, lo, hi, rb, rshift, rslr, starts)
+    want = B.build_bitmap(part, lo, hi, rb, rshift, rslr)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bitmap_build"] == 1
+    assert torch.equal(got, want)
+    live = B.live_words(rshift)
+    assert not got.view(1 << rb, -1)[:, live:].any()
+    return got
+
+
+@pytest.mark.parametrize("split", list(BUILD_SPLITS))
+@pytest.mark.parametrize("case", ["runs_of_one", "pad_cat", "duplicates",
+                                  "edge_keys", "one_bucket", "empty_buckets"])
+def test_bitmap_build_walks_every_split(cuda, monkeypatch, split, case):
+    """The staged build over R's runs against the twin, bit for bit: runs
+    of 0-1 keys (1,024 buckets, 8-row chunks), the pad category kept (a
+    negative range), R drawn with replacement, keys at lo - 1, lo, hi and
+    hi + 1 with PAD and negative keys, every key in one bucket, and R in
+    the first and last buckets only."""
+    _force_build_split(monkeypatch, split)
+    rng = np.random.default_rng(len(case) * 13 + len(split))
+    lo, hi, bits, chunk_rows, nchunks = 1, 5_000_000, 6, 64, 4
+    n = nchunks * chunk_rows * 128 - 333
+    if case == "runs_of_one":
+        bits, chunk_rows, n = 10, 8, 5 * 8 * 128 - 50
+    if case == "pad_cat":
+        lo, hi = -(1 << 20), (1 << 20) - 1
+    rk = rng.integers(lo, hi + 1, n)
+    if case == "duplicates":
+        rk = rng.choice(rng.integers(lo, hi + 1, 500), n)
+    if case == "edge_keys":
+        u = rng.random(n)
+        rk[u < 0.1] = lo - 1
+        rk[(u > 0.1) & (u < 0.2)] = hi + 1
+        rk[(u > 0.2) & (u < 0.3)] = lo
+        rk[(u > 0.3) & (u < 0.4)] = hi
+        rk[(u > 0.4) & (u < 0.5)] = PAD
+        rk[(u > 0.5) & (u < 0.6)] = rng.integers(-2**31 + 1, 0,
+                                                 int(((u > 0.5) & (u < 0.6))
+                                                     .sum()))
+    pb, shift, _ = B.plan_geometry(lo, hi, bits)
+    if case == "one_bucket":
+        rk = rng.integers(lo, lo + (1 << shift), n)
+    if case == "empty_buckets":
+        top = lo + ((hi - lo) >> shift << shift)      # hi's bucket
+        rk = np.concatenate([rng.integers(lo, lo + (1 << shift), n // 2),
+                             rng.integers(top, hi + 1, n - n // 2)])
+    rk = rk.astype(np.int32)
+    part, starts, geo = _build_case(cuda, rk, lo, hi, bits, chunk_rows)
+    assert B.build_split(part, starts, geo[1], geo[0]) is not None
+    got = _build_check(cuda, part, starts, lo, hi, geo)
+    in_range = rk[(rk >= lo) & (rk <= hi)]
+    assert np.unpackbits(got.cpu().numpy().view(np.uint8)).sum() \
+        == len(np.unique(in_range))
+
+
+@pytest.mark.parametrize("name,lo,hi,bits,geo", [
+    ("4d", 1, 16_000_000, 12, (12, 12, 8)),
+    ("flagship shift 19", 1, 128_000_000, 8, (8, 19, 128)),
+    ("flagship as planned", 1, 128_000_000, None, (9, 18, 64))])
+def test_bitmap_build_main_path_geometries(cuda, name, lo, hi, bits, geo):
+    """4d's 4,096 slices of 4 KiB (512 live bytes, many buckets a range)
+    and the flagship's build geometries (64 KiB slices at shift 19; 32 KiB
+    as plan_radix_join plans it) over 3 chunks of a shuffled dense range
+    with a PAD tail."""
+    rng = np.random.default_rng(geo[0])
+    rk = (rng.choice(hi, 3 * 4096 * 128 - 7777, replace=False) + lo) \
+        .astype(np.int32)
+    part, starts, got_geo = _build_case(cuda, rk, lo, hi, bits, 4096)
+    assert got_geo == geo, name
+    _build_check(cuda, part, starts, lo, hi, geo)
+
+
+@pytest.mark.parametrize("case", ["other_range", "in_range_pad_run"])
+def test_bitmap_build_keys_outside_their_range(cuda, case):
+    """Runs that do not follow the bitmap's buckets: R partitioned over a
+    range shifted by 3 buckets (every key in another range's run), and
+    with a pad category over a narrower range (in-range keys in the pad
+    run): the last CTA's pass over R in device memory keeps the bitmap
+    equal to the twin's."""
+    rng = np.random.default_rng(len(case))
+    lo, hi = 1, 5_000_000
+    rk = rng.integers(lo, hi + 1, 3 * 64 * 128 - 99).astype(np.int32)
+    pb, shift, _ = B.plan_geometry(lo, hi, 6)
+    kw = dict(geom_lo=lo + 3 * (1 << shift)) if case == "other_range" \
+        else dict(pad_cat=True, geom_hi=hi // 2)
+    part, starts, geo = _build_case(cuda, rk, lo, hi, 6, 64, **kw)
+    _build_check(cuda, part, starts, lo, hi, geo)
+
+
+def test_bitmap_build_flat_class_and_needs_starts(cuda):
+    """A slice past the staging budget (shift 21: 256 KiB) takes the flat
+    class and equals the twin; without starts, with starts of the wrong
+    size or with a key range past the buckets the build raises on the
+    card."""
+    rng = np.random.default_rng(5)
+    lo, hi = 1, 1 << 23
+    rk = rng.integers(lo, hi + 1, 2 * 64 * 128).astype(np.int32)
+    geo = (2, 21, 512)        # the two-pass plan's build at 2 bits
+    part, starts = X.partition_pass(X._chunk_pad(rk, 64 * 128, cuda),
+                                    X.RadixGeom(chunk_rows=64, part_bits=2,
+                                                lo=lo, hi=hi, shift=21,
+                                                pad_cat=False))
+    assert B.build_split(part, starts, 21, 2) is None
+    _build_check(cuda, part, starts, lo, hi, geo)
+    part, starts, geo = _build_case(cuda, rk, lo, hi, 6, 64)
+    with pytest.raises(ValueError, match="starts"):
+        B.bitmap_build(part, lo, hi, *geo)
+    with pytest.raises(ValueError, match="starts"):
+        B.bitmap_build(part, lo, hi, *geo, starts[:-128])
+    with pytest.raises(ValueError, match="past"):
+        B.bitmap_build(part, lo, 2 * hi, *geo, starts)
 
 
 def _one_bucket_keys(rng, args, bits, n):
