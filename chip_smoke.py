@@ -76,7 +76,18 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    13-bit single-pass limit: tier cuda_prho, 4b's count and checksums; then
    one line of the partition's ms and ns a key, keys only and with
    payloads, at 6 to 17 bits over workload B's S;
-   every run of 4-4j has the launch counts reset just before and read just
+4k. workload A (KEY_8B, rerun-experiments.sh:52-60): PRO 2^24 ⋈ 2^28 over
+   16-byte tuples at q = 1: the tier must be cuda_key8b (the partition,
+   bitmap build and probe over the low words, launched), the count 2^28;
+   the plan-time high-word check's ms; then the plain key8b tier on the same
+   relations (R without stats): the count, 64-bit sums equal to ref_join's
+   on the low words, its peak device memory; then materialize8b at 2^20 ⋈
+   2^24: the count and the int64 pair multiset of the host's;
+4l. PRO 16M ⋈ 128M with a Zipf S (z = 1.0 over R's keys): cuda_radix, the
+   count |S|, the host generation time, the hottest key's share of S and
+   the bitmap probe's largest CTA share of the keys it walks (beside the
+   uniform q = 1 S's);
+   every run of 4-4l has the launch counts reset just before and read just
    after; every kernel of its path must have launched;
 5. kernel and twin times at the main paths' full shapes (the bloom kernels
    over 4d's and 4e's S, pass 2 in hash mode at the flagship's 10 + 3 bits,
@@ -87,7 +98,15 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    moved over the card's memory rate, or int32 operations over its int32
    rate); then one line of the class, split, CTAs and resident CTAs an SM
    that the bitmap build and the bitmap and bloom probes take at PRO q = 1
-   and q = 0.01, 4d, 4e and the flagship.
+   and q = 0.01, 4d, 4e and the flagship;
+6. entry points, each in its own process on the card: the port's CLI
+   (``python -m hwbloomradixjoin_tpu_torch.cli``) at 4e's command line,
+   with --key8b at workload A, -z 1.0 at 16M ⋈ 128M, -a PRHO at 2^24 ⋈
+   2^24, --materialize --out-file (the pairs read back with the port's
+   tblio against the host's), --verbose (the H100 roofline) and
+   --engine-trace (a trace file), each Results line exact and the output
+   parsed by measurements/run.py's parse_result; confrun on a JSON conf;
+   unittests tests 0 and 1 (the closed-form (h, y)).
 
 Prints, in order: the card line, each phase's results and wall time, a
 {"kernels": [...]} JSON line, and as the last line {"ok": true, "device":
@@ -95,6 +114,7 @@ Prints, in order: the card line, each phase's results and wall time, a
 """
 
 import json
+import os
 import subprocess
 import time
 
@@ -110,6 +130,11 @@ REF_SURVIVOR_PCT = 12.14      # its S-tuples after filter (BASELINE.md:43)
 WIDE_BITS = (14, 15, 16, 17)   # 4j: workload B past the former 13-bit limit
 PASS2_WIDTHS = (3, 6, 10)     # pass 2's cost a key over 4d's S
 PART_WIDTHS = (6, 7, 8, 9, 10, 12, 13, 14, 17)   # the partition's cost a key
+A_R_SIZE = 1 << 24            # workload A (KEY_8B, 16-byte tuples): 2^24 ⋈
+A_S_SIZE = 1 << 28            # 2^28 (rerun-experiments.sh:52-60)
+A_MAT_R_SIZE = 1 << 20        # materialize8b: 2^20 ⋈ 2^24
+A_MAT_S_SIZE = 1 << 24
+ZIPF_Z = 1.0                  # the Zipf PRO cell: S Zipf over R's 16M keys
 PAD_KEY = -2**31
 SRC = "hwbloomradixjoin_tpu_torch/csrc/"
 KERNELS = {   # wrapper name -> (route, source, TPU kernel it replaces)
@@ -1180,6 +1205,287 @@ def run_nonunique(dev, kind, launches):
     add_launches(launches, ran)
 
 
+def run_key8b(dev, kind, launches):
+    """Phase 4k: workload A, PRO 2^24 ⋈ 2^28 over 16-byte tuples at q = 1:
+    cuda_key8b (the partition, the bitmap build and probe over the low
+    words), then the plain wide tier on the same relations (no R stats),
+    its 64-bit sums against ref_join's on the low words, its peak device
+    memory and its stable sort and segment starts alone, then materialize8b at 2^20 ⋈ 2^24 against the host's pairs."""
+    import dataclasses
+    import torch
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.data import native
+    from hwbloomradixjoin_tpu_torch.models import registry
+    from hwbloomradixjoin_tpu_torch.ops import xla_join
+    from hwbloomradixjoin_tpu_torch.types import Relation
+    from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
+
+    t0 = time.perf_counter()
+    params = G.WorkloadParams(r_size=A_R_SIZE, s_size=A_S_SIZE, nthreads=8,
+                              key8b=True)
+    rk, rp, sk, sp = G.build_workload(params)
+    gen_s = time.perf_counter() - t0
+    R = Relation.from_numpy(rk, rp, device=dev, stats=G.r_key_stats(params),
+                            key8b=True)
+    S = Relation.from_numpy(sk, sp, device=dev, key8b=True)
+    check_ms = time_usec(lambda: registry.high_words_zero(R, S), dev) / 1e3
+    print(f"workload A: host generation {gen_s:.1f}s; the plan-time "
+          f"high-word check {check_ms:.4f} ms", flush=True)
+    cfg = EngineConfig(allow_dense=False)
+    res, st, sums, ran = drive(
+        "PRO", R, S, cfg, ("partition", "bitmap_build", "bitmap_probe"),
+        "workload A (KEY_8B) PRO 2^24 x 2^28", kind)
+    if st.tier != "cuda_key8b" or res.count() != A_S_SIZE or sums != (0, 0):
+        raise AssertionError(f"workload A: tier {st.tier} count "
+                             f"{res.count()} sums {sums}")
+    add_launches(launches, ran)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    wres, wst, wsums, _ = drive("PRO", dataclasses.replace(R, stats=None), S,
+                                cfg, (), "workload A, the plain key8b tier",
+                                kind)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rs_bytes = nbytes(R.key, R.key_hi, R.payload, R.payload_hi, S.key,
+                      S.key_hi, S.payload, S.payload_hi)
+    _, want_r, want_s = native.ref_join(rk, rp, sk, sp)
+    want = (want_r % 2**64, want_s % 2**64)
+    if wst.tier != "key8b" or wres.count() != A_S_SIZE or wsums != want:
+        raise AssertionError(f"key8b tier: {wst.tier} {wres.count()} "
+                             f"{wsums} != {want}")
+    print(f"key8b tier: sums {wsums} = ref_join's; peak device memory "
+          f"{peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB over the "
+          f"{base / 2**30:.3f} GiB allocated before it (R and S, "
+          f"{rs_bytes / 2**30:.3f} GiB, and the plans phase 5 times)",
+          flush=True)
+    keys = xla_join.wide(torch.cat([R.key_hi, S.key_hi]),
+                         torch.cat([R.key, S.key]))
+    sort_ms = time_usec(lambda: torch.sort(keys, stable=True), dev) / 1e3
+    srt = torch.sort(keys, stable=True).values
+    seg_ms = time_usec(lambda: xla_join.segment_starts(srt), dev) / 1e3
+    print(f"key8b tier's steps alone: the stable sort of {keys.numel()} "
+          f"int64 keys {sort_ms:.4f} ms, segment_starts {seg_ms:.4f} ms",
+          flush=True)
+    del R, S, rk, rp, sk, sp, keys, srt
+    torch.cuda.empty_cache()
+
+    params = G.WorkloadParams(r_size=A_MAT_R_SIZE, s_size=A_MAT_S_SIZE,
+                              nthreads=8, key8b=True)
+    rk, rp, sk, sp = G.build_workload(params)
+    R = Relation.from_numpy(rk, rp, device=dev, stats=G.r_key_stats(params),
+                            key8b=True)
+    S = Relation.from_numpy(sk, sp, device=dev, key8b=True)
+    mres, mst, _, _ = drive("PRO", R, S, EngineConfig(materialize=True), (),
+                            "materialize8b 2^20 x 2^24", kind)
+    pay_of = np.zeros(A_MAT_R_SIZE + 1, np.int64)
+    pay_of[rk] = rp
+    want = np.stack([pay_of[sk], sp.astype(np.int64)])
+    got = np.stack([mres.r_payload.cpu().numpy(),
+                    mres.s_payload.cpu().numpy()])
+    if mst.tier != "materialize8b" or mres.count() != A_MAT_S_SIZE \
+            or not np.array_equal(got[:, np.lexsort(got[::-1])],
+                                  want[:, np.lexsort(want[::-1])]):
+        raise AssertionError(f"materialize8b: {mst.tier} {mres.count()} "
+                             "pairs differ from the host's")
+    print(f"materialize8b: {mres.count()} int64 pairs = the host's",
+          flush=True)
+
+
+def probe_largest_cta(plan, sms):
+    """(class, CTAs, the largest CTA's share of the keys) of the bitmap
+    probe over a one-pass plan's S partition: each CTA's keys from the
+    partition's starts and run_split's mapping of a CTA to its work (its
+    range's runs in each segment of its span, and its share of their pad
+    runs)."""
+    import torch
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+
+    s_part, starts = plan._intermediates()["s_part"]
+    split = B.probe_split(s_part, starts, plan.sgeom.shift,
+                          plan.sgeom.part_bits, None, sms)
+    if split is None:
+        return "flat", None, None
+    e, fs, nr = split.seg_elems, split.seg_buckets, split.nranges
+    st = starts.reshape(split.nseg, split.cat_words)[:, :fs + 1].long()
+    st = st.clamp(max=e)
+    j0 = torch.arange(nr, device=st.device) * split.nb
+    j1 = (j0 + split.nb).clamp(max=fs)
+    rng = torch.arange(nr + 1, device=st.device)
+    p0 = st[:, fs:]
+    pads = p0 + (e - p0) * rng // nr
+    work = st[:, j1] - st[:, j0] + pads[:, 1:] - pads[:, :-1]
+    spans = torch.zeros(split.nspans * split.span, nr, dtype=torch.int64,
+                        device=st.device)
+    spans[:split.nseg] = work
+    per_cta = spans.view(split.nspans, split.span, nr).sum(1)
+    return "staged", split.ctas, int(per_cta.max()) / int(per_cta.sum())
+
+
+def run_zipf(dev, kind, launches, sms, pro_plan):
+    """Phase 4l: PRO 16M ⋈ 128M with a Zipf S (z = 1.0 over R's keys,
+    every S key in R) on cuda_radix; the host generation time, the count
+    (S's size), the hottest key's share of S and the bitmap probe's largest
+    CTA share beside the uniform q = 1 S's."""
+    import torch
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join
+    from hwbloomradixjoin_tpu_torch.types import Relation
+
+    t0 = time.perf_counter()
+    params = G.WorkloadParams(r_size=R_SIZE, s_size=S_SIZE, nthreads=8,
+                              skew=ZIPF_Z)
+    rk, rp, sk, sp = G.build_workload(params)
+    gen_s = time.perf_counter() - t0
+    hot = int(np.bincount(sk).max()) / len(sk)
+    R = Relation.from_numpy(rk, rp, device=dev, stats=G.r_key_stats(params))
+    S = Relation.from_numpy(sk, sp, device=dev)
+    res, st, _, ran = drive("PRO", R, S, EngineConfig(allow_dense=False),
+                            ("partition", "bitmap_build", "bitmap_probe"),
+                            f"PRO 16M x 128M Zipf z={ZIPF_Z}", kind)
+    if st.tier != "cuda_radix" or res.count() != S_SIZE:
+        raise AssertionError(f"Zipf: tier {st.tier} count {res.count()}")
+    add_launches(launches, ran)
+    plan = bitmap_join.plan_radix_join(R.key, S.key, 1, R_SIZE, device=dev)
+
+    def split(p):
+        cls, ctas, share = probe_largest_cta(p, sms)
+        return cls if ctas is None else (
+            f"{cls}, {ctas} CTAs, the largest CTA {share * 100:.4f} % of "
+            "the keys walked")
+    print(f"Zipf z={ZIPF_Z}: host generation {gen_s:.1f}s, hottest key "
+          f"{hot * 100:.3f} % of S; bitmap probe {split(plan)} (uniform "
+          f"q = 1: {split(pro_plan)})", flush=True)
+    del plan, R, S
+    torch.cuda.empty_cache()
+
+
+def cli(args, expect, label, module="cli", tier=None):
+    """One run of the port's command line (python -m ...) in a subprocess:
+    its stdout, parsed by measurements/run.py's parse_result when it prints
+    the relation lines, with Results = expect.  With tier, the run adds
+    --engine-sync-stats and must name that tier and report partition
+    time."""
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "measurements"))
+    sys.path.insert(0, str(root))
+    from measurements.run import parse_result
+
+    if tier is not None:
+        args = [*args, "--engine-sync-stats"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"hwbloomradixjoin_tpu_torch.{module}",
+         *map(str, args)], capture_output=True, text=True, cwd=root,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    out = proc.stdout
+    if expect is not None and f"Results = {expect}. DONE." not in out:
+        raise AssertionError(f"{label}: no 'Results = {expect}'\n{out}")
+    d = parse_result(out) if "relation S with size" in out else None
+    if d is not None:
+        if d["results"] != expect or d["out-tuples"] != expect:
+            raise AssertionError(f"{label}: parse_result {d}")
+        if tier is not None and (f"[SYNC] tier={tier} " not in out
+                                 or d["partition-usecs"] <= 0):
+            raise AssertionError(f"{label}: not tier {tier} with a "
+                                 f"partition\n{out}")
+        print(f"{label}: Results = {expect}, total "
+              f"{d['time-usecs'] / 1e3:.4f} ms, ns/S-tuple "
+              f"{d['nsec-per-tuple']}, part {d['partition-usecs'] / 1e3:.4f}"
+              f" ms, probe {d['probe-usecs'] / 1e3:.4f} ms; {wall:.1f}s "
+              "wall", flush=True)
+    else:
+        print(f"{label}: {wall:.1f}s wall", flush=True)
+    return out
+
+
+def run_entry_points() -> None:
+    """Phase 6: the port's CLI, confrun and unittests as a user runs them,
+    each in its own process on the card."""
+    import tempfile
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.data import tblio
+    from hwbloomradixjoin_tpu_torch.unittests import _edh_final
+    from hwbloomradixjoin_tpu_torch.data import native
+
+    cli(["-a", "PRO", "-r", 16_000_000, "-s", 128_000_000, "-q", 0.01, "-b",
+         "blocked", "-m", 134217728, "-k", 1, "-B", 512, "--engine-no-dense"],
+        G.expected_uniform_match_count(128_000_000, 0.01), "cli 4e (BPRO)",
+        tier="cuda_radix")
+    cli(["-a", "PRO", "-r", A_R_SIZE, "-s", A_S_SIZE, "--key8b", "-n", 8],
+        A_S_SIZE, "cli --key8b workload A", tier="cuda_key8b")
+    cli(["-a", "PRO", "-r", R_SIZE, "-s", S_SIZE, "-z", ZIPF_Z,
+         "--engine-no-dense"], S_SIZE, f"cli -z {ZIPF_Z}", tier="cuda_radix")
+    cli(["-a", "PRHO", "-r", 1 << 24, "-s", 1 << 24, "--engine-no-dense"],
+        1 << 24, "cli PRHO 2^24 x 2^24", tier="cuda_prho")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_tbl = os.path.join(tmp, "Out.tbl")
+        n = G.expected_uniform_match_count(800_000, 0.5)
+        cli(["-a", "PRO", "-r", 100_000, "-s", 800_000, "-q", 0.5,
+             "--materialize", "--out-file", out_tbl], n,
+            "cli --materialize --out-file")
+        r_pay, s_pay = tblio.read_relation(out_tbl)
+        rk, rp, sk, sp = G.build_workload(G.WorkloadParams(
+            r_size=100_000, s_size=800_000, selectivity=0.5))
+        pay_of = np.full(100_001, -1, np.int64)
+        pay_of[rk] = rp
+        hit = (sk >= 1) & (sk <= 100_000)
+        want = sorted(zip(pay_of[sk[hit]].tolist(), sp[hit].tolist()))
+        if len(r_pay) != n or sorted(zip(r_pay.tolist(),
+                                         s_pay.tolist())) != want:
+            raise AssertionError("Out.tbl differs from the host's pairs")
+        out = cli(["-a", "PRO", "-r", 1_000_000, "-s", 8_000_000,
+                   "--engine-no-dense", "--verbose"], 8_000_000,
+                  "cli --verbose", tier="cuda_radix")
+        if "roofline (H100" not in out or "attained" not in out:
+            raise AssertionError(f"--verbose: no H100 bound\n{out}")
+        print([ln for ln in out.splitlines() if "roofline" in ln
+               or " ms " in ln], flush=True)
+        trace_dir = os.path.join(tmp, "trace")
+        cli(["-a", "PRO", "-r", 1_000_000, "-s", 8_000_000,
+             "--engine-no-dense", "--engine-trace", trace_dir], 8_000_000,
+            "cli --engine-trace", tier="cuda_radix")
+        traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+        if not traces:
+            raise AssertionError("--engine-trace wrote no trace")
+        print(f"trace: {traces[0]} "
+              f"{os.path.getsize(os.path.join(trace_dir, traces[0]))} "
+              "bytes", flush=True)
+        conf = os.path.join(tmp, "pro.conf")
+        with open(conf, "w") as f:
+            json.dump({"algorithm": "PRO", "threads": 8,
+                       "build": {"size": 1_000_000},
+                       "probe": {"size": 8_000_000, "selectivity": 1.0},
+                       "engine": {"use_pallas": True}}, f)
+        out = cli([conf], 8_000_000, "confrun PRO 1M x 8M",
+                  module="confrun")
+        if "RUNTIME TOTAL, BUILD+PART, PART (cycles):" not in out:
+            raise AssertionError(f"confrun: no summary line\n{out}")
+    out = cli([0, 19201, 1_000_000], None, "unittests 0",
+              module="unittests")
+    rows = out.strip().splitlines()
+    if len(rows) != 11 or rows[0] != ("algorithm;time_total_ms;"
+                                      "time_single_ns;collisions;"
+                                      "collisions_pct"):
+        raise AssertionError(f"unittests 0:\n{out}")
+    print(rows[1], rows[-1], flush=True)
+    out = cli([1, 19201, 1_000_000], None, "unittests 1", module="unittests")
+    h0, y0 = (int(v) & 0xFFFFFFFF for v in native.rand_stream(19201, 2))
+    h, y = _edh_final(h0, y0, 1_000_000)
+    want = f"h: {np.int32(np.uint32(h))}, y: {np.int32(np.uint32(y))}"
+    if not out.startswith(want) or "cycles_per_hash" not in out:
+        raise AssertionError(f"unittests 1:\n{out}")
+    print(out.strip().replace("\n", " | "), flush=True)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -1412,17 +1718,25 @@ def main():
     flag_cells = run_flagship(dev, kind, launches, err)
     torch.cuda.empty_cache()
     t0 = done("4f (BRJ 128M x 1.024B)", t0)
+    run_key8b(dev, kind, launches)
+    t0 = done("4k (workload A, KEY_8B)", t0)
+    sms = run_split.card_sms(dev)
+    run_zipf(dev, kind, launches, sms, pro_plans[1.0])
+    t0 = done("4l (Zipf PRO 16M x 128M)", t0)
 
     times = time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in,
                          mat_plan, gp_parts, err)
     pass2_widths(dev, two_pass, err)
-    sms = run_split.card_sms(dev)
     cells = [c for label, plan in (("PRO q=1", pro_plans[1.0]),
                                    ("PRO q=0.01", pro_plans[0.01]),
                                    ("4d", two_pass), ("4e", bpro))
              for c in class_cells(label, plan, sms)]
     print("classes: " + "; ".join(cells + flag_cells), flush=True)
-    done("5 (kernel times)", t0)
+    t0 = done("5 (kernel times)", t0)
+    del pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan, gp_parts
+    torch.cuda.empty_cache()
+    run_entry_points()
+    done("6 (entry points: cli, confrun, unittests)", t0)
     rows = [{"name": name, "route": route, "source": source,
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": err[name], "ms": times[name][0],

@@ -10,9 +10,10 @@ Ported so far: the PRO bitmap radix join (unique build side, count only, one
 or two partition passes), the count-table engines (PRHO, PRH, NPO, and PRO
 over a non-unique build side, with both payload checksums), the bloom
 pre-filter, the dense fast path, materialization, the general radix count
-join (``ops.radix.radix_join_count``) and the portable ``ht``/``sortscan``/
-``materialize`` tiers; KEY_8B is not (see ROADMAP.md).  Entry points run on
-the card unless given ``device="cpu"``.
+join (``ops.radix.radix_join_count``), KEY_8B (16-byte tuples), the
+portable ``ht``/``sortscan``/``materialize`` tiers and the reference's
+command line (``cli``, ``confrun``, ``unittests``); distribution is not (see
+ROADMAP.md).  Entry points run on the card unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -2,9 +2,10 @@
 
 The JAX package's ``interpret`` flag is gone: a wrapper launches its CUDA
 kernel for a tensor on the card and runs its plain PyTorch twin for a tensor
-on the CPU, so the device of the input tensors decides.  Fields that only the
-unported tiers read (KEY_8B, sync stats, distributed skew handling) arrive
-with their ROADMAP slices.
+on the CPU, so the device of the input tensors decides.  There is no
+``key8b`` field: a relation built with ``Relation.from_numpy(...,
+key8b=True)`` carries high words, and they alone pick the KEY_8B tiers.  The
+distributed skew handling arrives with ROADMAP slice 9.
 """
 
 from __future__ import annotations
@@ -80,4 +81,5 @@ class EngineConfig:
 
     radix: RadixConfig = dataclasses.field(default_factory=RadixConfig)
     materialize: bool = False      # JOIN_RESULT_MATERIALIZE equivalent
+    sync_stats: bool = False       # per-phase timing stats (SYNCSTATS analog)
     allow_dense: bool = True       # planner may take the dense-PK fast path

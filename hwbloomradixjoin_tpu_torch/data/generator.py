@@ -1,13 +1,14 @@
-"""Deterministic relation generators: uniform, non-unique and full-range.
+"""Deterministic relation generators: uniform, Zipf, non-unique and
+full-range.
 
-Counterpart of ``hwbloomradixjoin_tpu/data/generator.py`` (lines 43-116 and
-126-218), copied rather than imported because importing the JAX package
+Counterpart of ``hwbloomradixjoin_tpu/data/generator.py`` (lines 43-218),
+copied rather than imported because importing the JAX package
 imports jax.  ``parallel_create_relation`` reproduces the reference's
 threshold-selectivity generator multiset-exactly (generator.c:161-221,
 304-415) in numpy; the key order is a seeded permutation (the reference's
-shuffle is time-seeded).  The non-unique and full-range generators replay
-glibc rand() streams through the port's copy of the native binding
-(``data/native.py``).  The Zipf generator arrives with ROADMAP slice 11.
+shuffle is time-seeded).  The Zipf, non-unique and full-range generators
+replay glibc rand() streams through the port's copy of the native binding
+(``data/native.py``).
 """
 
 from __future__ import annotations
@@ -98,6 +99,14 @@ def parallel_create_relation(num_tuples: int, nthreads: int, maxid: int,
     return keys, payloads
 
 
+def create_relation_zipf(seed: int, num_tuples: int, maxid: int,
+                         zipf_param: float):
+    """Zipf-distributed keys over a permuted alphabet 1..maxid (bit-exact
+    with the reference's genzipf); payload = rid."""
+    keys = native.gen_zipf(seed, num_tuples, maxid, zipf_param)
+    return keys, np.arange(num_tuples, dtype=np.int32)
+
+
 def create_relation_nonunique(seed: int, num_tuples: int, maxid: int):
     """Keys uniform in [0, maxid) from rand() seeded `seed`; payload = rid."""
     keys = native.random_gen(seed, num_tuples, 0, maxid)
@@ -139,7 +148,7 @@ def build_workload(p: WorkloadParams):
     """Build (R_keys, R_pays, S_keys, S_pays) as main.c:416-467 does.
 
     - default: R = parallel PK over [1, r_size]; S = parallel FK with
-      selectivity threshold r_size (Zipf S, skew > 0: ROADMAP slice 11);
+      selectivity threshold r_size, or Zipf over [1, r_size] (skew > 0);
     - full-range: R non-unique over [0, ceil(INT_MAX*sel)), S = fk_from_pk;
     - non-unique: R non-unique over [0, min(r_size, ceil(INT_MAX*sel))),
       S = nonunique_from_pk.
@@ -156,15 +165,17 @@ def build_workload(p: WorkloadParams):
         sk, sp = create_relation_nonunique_from_pk(p.s_seed, rk, p.s_size,
                                                    threshold, p.selectivity)
         return rk, rp, sk, sp
-    if p.skew > 0:
-        raise NotImplementedError("Zipf generator: ROADMAP slice 11")
     tb = 16 if p.key8b else 8
     rk, rp = parallel_create_relation(p.r_size, p.nthreads, p.r_size,
                                       p.r_size, 1.0, shuffle_seed=p.r_seed,
                                       tuple_bytes=tb)
-    sk, sp = parallel_create_relation(p.s_size, p.nthreads, INT_MAX,
-                                      p.r_size, p.selectivity,
-                                      shuffle_seed=p.s_seed, tuple_bytes=tb)
+    if p.skew > 0:
+        sk, sp = create_relation_zipf(p.s_seed, p.s_size, p.r_size, p.skew)
+    else:
+        sk, sp = parallel_create_relation(p.s_size, p.nthreads, INT_MAX,
+                                          p.r_size, p.selectivity,
+                                          shuffle_seed=p.s_seed,
+                                          tuple_bytes=tb)
     return rk, rp, sk, sp
 
 

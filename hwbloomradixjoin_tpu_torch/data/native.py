@@ -2,7 +2,7 @@
 
 The port's own copy of ``hwbloomradixjoin_tpu/data/native.py`` (lines
 29-144), cut to what the port needs: the glibc-rand() stream, the
-rand()-driven non-unique, full-range and selection-sampled generators, and
+rand()-driven Zipf, non-unique, full-range and selection-sampled generators, and
 the two ground truths, ``ref_join`` and the reference's scalar bloom filter
 ``ref_bloom``.  The library is compiled from the
 repository's ``native/hbrj_native.cpp`` with ``g++`` (the flags of
@@ -69,6 +69,9 @@ def lib() -> ctypes.CDLL:
                 ctypes.c_uint32, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int32, ctypes.c_int32, _i32p]
             dll.hbrj_unique_gen_range.restype = ctypes.c_int64
+            dll.hbrj_gen_zipf.argtypes = [
+                ctypes.c_uint32, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_double, _i32p]
             dll.hbrj_random_gen.argtypes = [
                 ctypes.c_uint32, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int64, _i32p]
@@ -81,12 +84,23 @@ def lib() -> ctypes.CDLL:
             dll.hbrj_ref_join.argtypes = [
                 _i32p, _i32p, ctypes.c_int64, _i32p, _i32p, ctypes.c_int64,
                 _u64p]
-            for fn in (dll.hbrj_random_gen, dll.hbrj_nonunique_from_pk,
+            for fn in (dll.hbrj_gen_zipf, dll.hbrj_random_gen,
+                       dll.hbrj_nonunique_from_pk,
                        dll.hbrj_fk_from_pk, dll.hbrj_ref_join,
                        dll.hbrj_rand_stream, dll.hbrj_ref_bloom):
                 fn.restype = None
             _lib = dll
         return _lib
+
+
+def gen_zipf(seed: int, stream_size: int, alphabet_size: int,
+             zipf_factor: float) -> np.ndarray:
+    """stream_size keys Zipf-distributed (factor zipf_factor) over a
+    rand()-permuted alphabet 1..alphabet_size (the ETH genzipf)."""
+    out = np.empty(stream_size, dtype=np.int32)
+    lib().hbrj_gen_zipf(seed & 0xFFFFFFFF, stream_size, alphabet_size,
+                        zipf_factor, out)
+    return out
 
 
 def random_gen(seed: int, n: int, minid: int, maxid: int) -> np.ndarray:

@@ -1,17 +1,18 @@
 """Algorithm registry, the tier planner and run_join.
 
-Counterpart of ``hwbloomradixjoin_tpu/models/registry.py`` (lines 82-173,
-230-252, 344-529, 572-791).  ``select_tier`` is ported whole; the kernel
+Counterpart of ``hwbloomradixjoin_tpu/models/registry.py`` (lines 82-229,
+230-252, 344-569, 572-791).  ``select_tier`` is ported whole; the kernel
 tiers are ``cuda_radix`` (the JAX package's ``pallas_radix``: PRO/RJ over a
 unique build side, one or two partition passes), ``cuda_prho``/``cuda_prh``/
 ``cuda_npo`` (its ``pallas_prho``/``pallas_prh``/``pallas_npo``: the
 count-table engines), ``cuda_materialize`` (its ``pallas_materialize``: the
-pairs of a unique R) and ``dense`` (a declared dense primary key, one stream
-over S).  A tier runs its CUDA kernels on tensors on the card and their plain
-twins on CPU tensors, so CPU tests walk the same planner path as the card.
-The portable tiers are ``ht``, ``sortscan`` and ``materialize`` (plain
-torch).  Tiers whose code is not ported yet raise NotImplementedError naming
-their ROADMAP slice.
+pairs of a unique R), ``dense`` (a declared dense primary key, one stream
+over S) and ``cuda_key8b`` (its ``pallas_key8b``: 16-byte tuples whose high
+key words are all zero, joined on their low words by ``cuda_radix``).  A
+tier runs its CUDA kernels on tensors on the card and their plain twins on
+CPU tensors, so CPU tests walk the same planner path as the card.  The
+portable tiers are ``ht``, ``sortscan`` and ``materialize``, and for 16-byte
+tuples ``key8b`` and ``materialize8b`` (plain torch).
 
 A bloom filter (``bloom_args``) prunes S ahead of the join, as the JAX
 package's ``_bloom_prologue`` does: the kernel prune (hash partition and
@@ -42,7 +43,11 @@ from hwbloomradixjoin_tpu_torch.ops import (bitmap_join, bloom_pallas,
 from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
 from hwbloomradixjoin_tpu_torch.ops.radix import LANES
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY, JoinResult, Relation
-from hwbloomradixjoin_tpu_torch.utils.timing import JoinStats, time_usec
+from hwbloomradixjoin_tpu_torch.utils.timing import (JoinStats,
+                                                    print_sync_stats,
+                                                    time_usec)
+
+MASK64 = (1 << 64) - 1
 
 # Key-range budget for the count-table tier: slots * 8B (count + paysum).
 HT_MAX_SLOTS = 1 << 28
@@ -50,13 +55,6 @@ HT_MAX_SLOTS = 1 << 28
 # The bitmap radix engine spends 1 BIT per key-range slot, so it can serve
 # the full int32 key space; lo >= 0 keeps normalized keys in int32.
 BITMAP_MAX_SPAN = 1 << 31
-
-# Tiers select_tier can pick whose engines are not ported yet.
-UNPORTED_TIERS = {
-    "key8b": "KEY_8B (16-byte tuples), ROADMAP slice 6",
-    "materialize8b": "KEY_8B materialization, ROADMAP slice 6",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class AlgoSpec:
@@ -438,27 +436,145 @@ def _run_portable(tier: str, R: Relation, S: Relation, bloom_args,
             (int(sr), int(ss)))
 
 
+def high_words_zero(R: Relation, S: Relation) -> bool:
+    """Whether every high key word of R and S is zero: a reduction of each
+    on the device and one host read, at plan time (JAX
+    registry.py:547-550)."""
+    return not bool(torch.logical_or((R.key_hi != 0).any(),
+                                     (S.key_hi != 0).any()))
+
+
+def _run_cuda_key8b(spec: AlgoSpec, R: Relation, S: Relation,
+                    cfg: EngineConfig, bloom_args, inner_repeats: int):
+    """KEY_8B on the radix engine, or None where it does not apply.
+
+    The reference's --enable-key8B widens tuples to int64 keys and payloads
+    (types.h:22-28), but its generators still draw key values from [1,
+    INT_MAX] (workload A, rerun-experiments.sh:52-60), so every high word
+    is zero.  When the plan-time check confirms that, the join runs
+    ``cuda_radix`` over the low-word columns: count only, sums (0, 0), as
+    the JAX package's ``_run_pallas_key8b`` (registry.py:532-569).  A
+    filter prunes on the low words, as the reference's uint32 filter API
+    truncates int64 keys.
+    """
+    if spec.family != "radix" or not cfg.radix.use_kernels \
+            or cfg.materialize:
+        return None
+    if R.stats is None or not R.stats.is_unique:
+        return None
+    if not high_words_zero(R, S):
+        return None
+    R32 = Relation(key=R.key, payload=R.payload, stats=R.stats)
+    S32 = Relation(key=S.key, payload=S.payload)
+    wide_range = _key_range(R32, BITMAP_MAX_SPAN, require_nonneg=True)
+    if wide_range is None:
+        return None
+    result, stats, _ = _run_kernel("cuda_radix", R32, S32, cfg, bloom_args,
+                                   inner_repeats, None, wide_range)
+    stats.tier = "cuda_key8b"
+    return result, stats, (0, 0)
+
+
+def _run_wide(tier: str, R: Relation, S: Relation, bloom_args,
+              inner_repeats: int):
+    """The plain-torch KEY_8B tiers over (hi, lo) column pairs (JAX
+    registry.py:195-229, 745-768): ``key8b`` counts, with 64-bit checksums
+    whenever R carries payload high words (``Relation.from_numpy(...,
+    key8b=True)`` always sets them; S's default to zero), else mod 2^32;
+    ``materialize8b`` returns the matched pairs as int64 payload tensors.
+    A filter prunes on the low key words (the reference's uint32 filter
+    API), and every S row whose low word is PAD becomes the (PAD, PAD)
+    pair, which no relation may hold, as in the JAX package.
+
+    ``materialize8b`` needs an R declared unique: the JAX function emits no
+    pair for a key that repeats in R, where the reference emits one a copy
+    (ROADMAP §3), so the port raises instead of dropping pairs.
+    """
+    if tier == "materialize8b" and not (R.stats is not None
+                                        and R.stats.is_unique):
+        raise NotImplementedError(
+            "materialize8b over an R not declared unique: the JAX package "
+            "drops the pairs of repeated keys (ROADMAP §3)")
+
+    def hi_or_zero(hi, lo):
+        return torch.zeros_like(lo) if hi is None else hi
+
+    r_phi = hi_or_zero(R.payload_hi, R.payload)
+    s_phi = hi_or_zero(S.payload_hi, S.payload)
+
+    def full():
+        s_lo, n = S.key, None
+        if bloom_args is not None:
+            mask, n = bloom_join.bloom_prune(R.key, S.key, bloom_args)
+            s_lo = torch.where(mask, S.key, PAD_KEY)
+        s_hi = torch.where(s_lo == PAD_KEY, PAD_KEY, S.key_hi)
+        if tier == "materialize8b":
+            out = xla_join.sort_scan_materialize_wide(
+                R.key_hi, R.key, r_phi, R.payload, s_hi, s_lo, s_phi,
+                S.payload)
+        elif R.payload_hi is None:
+            out = xla_join.sort_scan_count_wide(R.key_hi, R.key, R.payload,
+                                                s_hi, s_lo, S.payload)
+        else:
+            out = xla_join.sort_scan_count_wide64(
+                R.key_hi, R.key, r_phi, R.payload, s_hi, s_lo, s_phi,
+                S.payload)
+        return out, n
+
+    total_usec = time_usec(full, S.device, calls=max(1, inner_repeats))
+    out, n = full()
+    cnt = int(out[0])
+    s_after = None if n is None else int(n)
+    pairs, sums = {}, (0, 0)
+    if tier == "materialize8b":
+        pairs = dict(r_payload=out[1][:cnt], s_payload=out[2][:cnt])
+    elif R.payload_hi is None:
+        sums = (int(out[1]), int(out[2]))
+    else:
+        sums = (int(out[1]) & MASK64, int(out[2]) & MASK64)
+    stats = JoinStats(
+        total_usec=total_usec, probe_usec=total_usec, result=cnt,
+        num_s_tuples=S.capacity, s_after_filter=s_after, tier=tier,
+        raw_total_usec=total_usec, phases={"probe": total_usec})
+    return (JoinResult(total_results=cnt, s_after_filter=s_after, **pairs),
+            stats, sums)
+
+
 def run_join(name: str, R: Relation, S: Relation,
              cfg: EngineConfig = EngineConfig(),
              bloom_args: BloomArgs | None = None, inner_repeats: int = 1):
     """Execute a named join algorithm; returns (JoinResult, JoinStats, sums).
 
     sums are the (R, S) payload checksums mod 2^32 on the count-table and
-    portable count tiers (S's is 0 on cuda_prh), (0, S's) on the dense tier
-    and (0, 0) on the count-only radix tier and the materializing tiers, as
-    in the JAX package.  With cfg.materialize, JoinResult.r_payload and
-    .s_payload hold the matched pairs (device tensors, any order).  With
-    bloom_args, S is pruned by R's filter first and
-    JoinResult/JoinStats.s_after_filter hold the survivor count (NPO ignores
-    the filter, as the reference's B_NPO wrappers do).
+    portable count tiers (S's is 0 on cuda_prh), mod 2^64 on the key8b tier
+    with 64-bit payloads, (0, S's) on the dense tier and (0, 0) on the
+    count-only radix tiers (cuda_radix, cuda_key8b) and the materializing
+    tiers, as in the JAX package.  With cfg.materialize,
+    JoinResult.r_payload and .s_payload hold the matched pairs (device
+    tensors, any order; int64 for 16-byte tuples).  With bloom_args, S is
+    pruned by R's filter first and JoinResult/JoinStats.s_after_filter hold
+    the survivor count (NPO ignores the filter, as the reference's B_NPO
+    wrappers do).  With cfg.sync_stats the phase table is printed
+    (utils/timing.py).
     """
+    out = _run_join(name, R, S, cfg, bloom_args, inner_repeats)
+    if cfg.sync_stats:
+        print_sync_stats(out[1], out[1].phases)
+    return out
+
+
+def _run_join(name, R, S, cfg, bloom_args, inner_repeats):
     spec = ALGORITHMS[name]
     if spec.family == "npo":
         bloom_args = None  # B_NPO wrappers ignore the filter (main.c:296-312)
     key_range, wide_range = key_ranges(R)
     tier = select_tier(spec, R, cfg, key_range, wide_range)
-    if tier in UNPORTED_TIERS:
-        raise NotImplementedError(f"tier {tier}: {UNPORTED_TIERS[tier]}")
+    if tier == "key8b":
+        out = _run_cuda_key8b(spec, R, S, cfg, bloom_args, inner_repeats)
+        if out is not None:
+            return out
+    if tier in ("key8b", "materialize8b"):
+        return _run_wide(tier, R, S, bloom_args, inner_repeats)
     if tier == "dense":
         # the dense path needs no table, so the count-table size cap
         # (HT_MAX_SLOTS) must not gate it: read the range off the stats

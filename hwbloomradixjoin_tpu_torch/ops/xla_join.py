@@ -1,13 +1,14 @@
 """Sort-based joins (the ``sortscan`` and ``materialize`` tiers), plain
 PyTorch.
 
-Counterpart of ``hwbloomradixjoin_tpu/ops/xla_join.py:32-118, 282-328``: R
-and S rows sort together by (key, side), R first within a key, so each S
-row's match count is the number of R rows in its key segment.  Duplicate
-keys are allowed on both sides.  Checksums are mod 2^32, as in the JAX
-package.  The materializing forms emit the matched (R payload, S payload,
-key) rows; on the card they are the independent oracle of the
-materialization kernel.
+Counterpart of ``hwbloomradixjoin_tpu/ops/xla_join.py:32-118, 121-160,
+209-392``: R and S rows sort together by (key, side), R first within a key,
+so each S row's match count is the number of R rows in its key segment.
+Duplicate keys are allowed on both sides.  Checksums are mod 2^32, as in
+the JAX package, and mod 2^64 for KEY_8B's 64-bit payloads (the ``_wide``
+functions, the ``key8b`` and ``materialize8b`` tiers).  The materializing
+forms emit the matched (R payload, S payload, key) rows; on the card they
+are the independent oracle of the materialization kernel.
 """
 
 from __future__ import annotations
@@ -32,14 +33,23 @@ def sort_rows(r_key, r_pay, s_key, s_pay):
     return key[order], tag[order], pay[order]
 
 
+def segment_starts(key):
+    """The index of the first row of each sorted row's key segment.
+
+    A scan of the segment boundaries and a gather: torch.cummax runs a
+    one-row scan on one CUDA block (~3.4 ns a row on an H100, where this
+    takes a device-wide cumsum).
+    """
+    boundary = torch.ones(key.shape[0], dtype=torch.bool, device=key.device)
+    torch.ne(key[1:], key[:-1], out=boundary[1:])
+    first = boundary.nonzero().squeeze(1)
+    return first[torch.cumsum(boundary, 0) - 1]
+
+
 def scan_sorted_count(key, tag, pay):
     """The probe half of sort_scan_count: segmented scan over sorted rows."""
-    n = key.shape[0]
     is_r = tag == 0
-    boundary = torch.ones(n, dtype=torch.bool, device=key.device)
-    boundary[1:] = key[1:] != key[:-1]
-    idx = torch.arange(n, device=key.device)
-    seg_start = torch.cummax(torch.where(boundary, idx, -1), dim=0).values
+    seg_start = segment_starts(key)
 
     r_flag = is_r.long()
     r_pref = torch.cumsum(r_flag, 0) - r_flag
@@ -58,13 +68,8 @@ def scan_sorted_count(key, tag, pay):
 
 def _segments(key, tag):
     """(is_r, seg_start, inclusive R prefix) of rows sorted by (key, tag)."""
-    n = key.shape[0]
-    boundary = torch.ones(n, dtype=torch.bool, device=key.device)
-    boundary[1:] = key[1:] != key[:-1]
-    idx = torch.arange(n, device=key.device)
-    seg_start = torch.cummax(torch.where(boundary, idx, -1), dim=0).values
     is_r = tag == 0
-    return is_r, seg_start, torch.cumsum(is_r.long(), 0)
+    return is_r, segment_starts(key), torch.cumsum(is_r.long(), 0)
 
 
 def sort_scan_materialize(r_key, r_pay, s_key, s_pay):
@@ -119,3 +124,92 @@ def sort_scan_materialize_multi(r_key, r_pay, s_key, s_pay, out_cap: int):
     pad = torch.tensor(-2**31, dtype=torch.int32, device=key.device)
     return (total, torch.where(valid, pay[src_r], pad),
             torch.where(valid, pay[i], pad), torch.where(valid, key[i], pad))
+
+
+# KEY_8B: 64-bit keys and payloads ride as (hi, lo) int32 columns, as in the
+# JAX package (xla_join.py:121-392).  One int64 column (hi << 32) | (lo as
+# unsigned) sorts in the JAX package's (hi signed, lo unsigned) order, and
+# int64 arithmetic wraps mod 2^64, so 64-bit checksums are plain int64 sums.
+
+# The (PAD, PAD) key pair as one int64: the key of an unmatched output row.
+PAD_PAIR = (-2**31 << 32) | 2**31
+
+
+def wide(hi, lo):
+    """(hi, lo) int32 columns -> int64 values (lo taken as unsigned)."""
+    return (hi.long() << 32) | (lo.long() & MASK32)
+
+
+def sort_rows_wide(r_key, s_key, r_pay, s_pay):
+    """(key, tag, pay) of R and S rows sorted by their int64 keys, tag 0 for
+    R: R's rows come first in the concatenation and the sort is stable, so
+    R rows lead each key segment, as the JAX package's sort by (hi, lo,
+    tag) orders them."""
+    key, order = torch.sort(torch.cat([r_key, s_key]), stable=True)
+    tag = (order >= r_key.numel()).to(torch.int32)
+    pay = torch.cat([r_pay, s_pay])[order]
+    return key, tag, pay
+
+
+def sort_scan_count_wide(r_hi, r_lo, r_pay, s_hi, s_lo, s_pay):
+    """sort_scan_count over 64-bit keys carried as (hi, lo) int32 columns,
+    int32 payloads: (count, R checksum, S checksum), the sums mod 2^32
+    (JAX xla_join.py:121)."""
+    return scan_sorted_count(*sort_rows_wide(wide(r_hi, r_lo),
+                                             wide(s_hi, s_lo), r_pay, s_pay))
+
+
+def _wide_segments(key, tag):
+    """(S-row mask, seg_start, R rows in each row's segment before it) of
+    rows sorted by sort_rows_wide."""
+    seg_start = segment_starts(key)
+    r_flag = (tag == 0).long()
+    r_pref = torch.cumsum(r_flag, 0) - r_flag
+    del r_flag
+    return tag == 1, seg_start, r_pref - r_pref[seg_start]
+
+
+def sort_scan_count_wide64(r_khi, r_klo, r_phi, r_plo,
+                           s_khi, s_klo, s_phi, s_plo):
+    """64-bit keys and 64-bit payloads: (count, R checksum, S checksum), the
+    sums int64 tensors whose bits are the JAX package's (hi, lo) sums mod
+    2^64 (xla_join.py:230)."""
+    key, tag, pay = sort_rows_wide(wide(r_khi, r_klo), wide(s_khi, s_klo),
+                                   wide(r_phi, r_plo), wide(s_phi, s_plo))
+    s_rows, seg_start, r_in_seg = _wide_segments(key, tag)
+    del key, tag
+    rp = torch.where(s_rows, 0, pay)
+    rp_pref = torch.cumsum(rp, 0) - rp
+    del rp
+    d = rp_pref - rp_pref[seg_start]
+    del rp_pref, seg_start
+    count = torch.where(s_rows, r_in_seg, 0).sum()
+    sum_r = torch.where(s_rows, d, 0).sum()
+    sum_s = torch.where(s_rows, pay * r_in_seg, 0).sum()
+    return count, sum_r, sum_s
+
+
+def sort_scan_materialize_wide(r_khi, r_klo, r_phi, r_plo,
+                               s_khi, s_klo, s_phi, s_plo):
+    """Materialized KEY_8B join: (count, R payloads, S payloads, keys), |S|
+    int64 rows whose first count hold the matched pairs in (key, S order)
+    order, the rest 0, 0 and PAD_PAIR (JAX xla_join.py:331, its (hi, lo)
+    pairs as int64).
+
+    Like the JAX function, an S row matches only when its key segment holds
+    exactly one R row: for a key that repeats in R it emits no pair, where
+    the reference emits one pair a copy.  Callers pass a unique R.
+    """
+    ns = s_klo.shape[0]
+    key, tag, pay = sort_rows_wide(wide(r_khi, r_klo), wide(s_khi, s_klo),
+                                   wide(r_phi, r_plo), wide(s_phi, s_plo))
+    s_rows, seg_start, r_in_seg = _wide_segments(key, tag)
+    rows = (s_rows & (r_in_seg == 1)).nonzero().squeeze(1)
+    count = rows.numel()
+    out_r = torch.zeros(ns, dtype=torch.int64, device=key.device)
+    out_s = torch.zeros_like(out_r)
+    out_k = torch.full_like(out_r, PAD_PAIR)
+    out_r[:count] = pay[seg_start[rows]]
+    out_s[:count] = pay[rows]
+    out_k[:count] = key[rows]
+    return torch.tensor(count, device=key.device), out_r, out_s, out_k

@@ -88,6 +88,24 @@ def time_usec(fn: Callable[[], object], device: torch.device,
     return min(_elapsed_usec(fn, device, calls) for _ in range(_REPEATS))
 
 
+def print_sync_stats(stats: JoinStats, phase_usec: dict[str, float]) -> None:
+    """SYNCSTATS analogue: the per-phase device time table.
+
+    The reference's --enable-syncstats dumps per-thread barrier-wait spans
+    (parallel_radix_join_bloom.c:1710-1728); one device has no waits, so
+    the diagnostic is the per-phase breakdown and the whole join's gain
+    over the sum of its phases run alone (JAX utils/timing.py:61).
+    """
+    print(f"[SYNC] tier={stats.tier} fused_total={stats.total_usec:.1f}us")
+    tot = 0.0
+    for name, us in phase_usec.items():
+        print(f"[SYNC]   phase {name:8s} {us:12.1f} us")
+        tot += us
+    if tot:
+        print(f"[SYNC]   phase-sum {tot:12.1f} us "
+              f"(fusion gain {tot - stats.total_usec:+.1f} us)")
+
+
 def print_timing(stats: JoinStats) -> str:
     """Render the reference's timing block; returns the string (also printed)."""
     lines = []

@@ -1414,3 +1414,80 @@ def test_bloom_probe_flat_class_past_the_staging_budget(cuda):
     with pytest.raises(ValueError):
         BP.bloom_probe_prune(words, part, args, starts=starts[:-128],
                              part_bits=0)
+
+
+def _key8b_relations(cuda, n_r, n_s, stats=True):
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.types import Relation
+    p = G.WorkloadParams(r_size=n_r, s_size=n_s, nthreads=8, key8b=True)
+    rk, rp, sk, sp = G.build_workload(p)
+    R = Relation.from_numpy(rk, rp, device=cuda, key8b=True,
+                            stats=G.r_key_stats(p) if stats else None)
+    S = Relation.from_numpy(sk, sp, device=cuda, key8b=True)
+    return (rk, rp, sk, sp), R, S
+
+
+def test_cuda_key8b_at_2_20_x_2_24(cuda):
+    """KEY_8B on the card: 16-byte tuples whose high words are zero take
+    cuda_key8b, which launches the partition, the bitmap build and probe,
+    and counts what ref_join counts."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig
+    from hwbloomradixjoin_tpu_torch.data import native
+    from hwbloomradixjoin_tpu_torch.models import run_join
+    (rk, rp, sk, sp), R, S = _key8b_relations(cuda, 1 << 20, 1 << 24)
+    _build.reset_launches()
+    res, st, sums = run_join("PRO", R, S, EngineConfig())
+    for name in ("partition", "bitmap_build", "bitmap_probe"):
+        assert _build.LAUNCHES[name] > 0, name
+    assert st.tier == "cuda_key8b" and sums == (0, 0)
+    assert res.count() == native.ref_join(rk, rp, sk, sp)[0] == 1 << 24
+
+
+def test_key8b_plain_tiers_on_card_equal_cpu(cuda):
+    """The plain key8b tier (no stats) and materialize8b (a declared unique
+    R) on the card give the CPU's count, 64-bit sums and pairs."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig
+    from hwbloomradixjoin_tpu_torch.models import run_join
+    from hwbloomradixjoin_tpu_torch.types import Relation
+    rng = np.random.default_rng(41)
+    rk = rng.permutation(np.arange(1, 50_001)).astype(np.int64)
+    rk[::7] += 2**32
+    sk = rng.choice(rk, 300_000) + rng.integers(0, 2, 300_000) * 2**33
+    rp = rng.integers(-2**40, 2**40, len(rk))
+    sp = rng.integers(-2**40, 2**40, len(sk))
+
+    def rels(dev, stats):
+        from hwbloomradixjoin_tpu_torch.types import KeyStats
+        ks = KeyStats(1, int(rk.max()), is_unique=True) if stats else None
+        return (Relation.from_numpy(rk, rp, device=dev, key8b=True,
+                                    stats=ks),
+                Relation.from_numpy(sk, sp, device=dev, key8b=True))
+    card = run_join("PRO", *rels(cuda, False), EngineConfig())
+    host = run_join("PRO", *rels("cpu", False), EngineConfig())
+    assert card[1].tier == host[1].tier == "key8b"
+    assert card[0].count() == host[0].count() > 0
+    assert card[2] == host[2]
+    cfg = EngineConfig(materialize=True)
+    card = run_join("PRO", *rels(cuda, True), cfg)
+    host = run_join("PRO", *rels("cpu", True), cfg)
+    assert card[1].tier == "materialize8b"
+    assert sorted(zip(card[0].r_payload.tolist(),
+                      card[0].s_payload.tolist())) == \
+        sorted(zip(host[0].r_payload.tolist(), host[0].s_payload.tolist()))
+
+
+def test_cli_pro_on_card(cuda, capsys):
+    """The port's CLI in-process on the card: the exact count, stdout the
+    measurement harness parses, and --verbose's roofline line."""
+    import os
+    import sys
+    from hwbloomradixjoin_tpu_torch import cli
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "measurements"))
+    from run import parse_result
+    assert cli.main(["-a", "PRO", "-r", "1000000", "-s", "8000000", "-n",
+                     "8", "-q", "0.5", "--engine-no-dense", "--verbose"]) == 0
+    out = capsys.readouterr().out
+    d = parse_result(out)
+    assert d["results"] == d["out-tuples"] == 4_000_000
+    assert "roofline" in out

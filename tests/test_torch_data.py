@@ -70,9 +70,15 @@ def test_build_workload_matches_jax(q):
 @pytest.mark.parametrize("kw", [dict(skew=1.0), dict(skew=0.75),
                                 dict(skew=0.25)])
 def test_unported_generators_raise(kw):
-    """Zipf S sides wait for their slice (the reference sweeps z)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 11"):
-        TG.build_workload(TG.WorkloadParams(r_size=10, s_size=10, **kw))
+    """Zipf S sides, which raised until the port's command line needed them,
+    emit exactly the JAX package's arrays: S Zipf over [1, r_size], every S
+    key in R."""
+    base = dict(r_size=300, s_size=2000, r_seed=5, s_seed=6)
+    got = TG.build_workload(TG.WorkloadParams(**base, **kw))
+    want = JG.build_workload(JG.WorkloadParams(**base, **kw))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert got[2].min() >= 1 and got[2].max() <= 300
 
 
 @pytest.mark.parametrize("kw", [

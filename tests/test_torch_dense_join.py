@@ -131,4 +131,3 @@ def test_select_tier_takes_dense_on_the_card_only():
         allow_dense=False), (1, 500)) == "cuda_radix"
     assert registry.select_tier(spec, on_card, EngineConfig(
         materialize=True), (1, 500)) == "materialize"
-    assert "dense" not in registry.UNPORTED_TIERS

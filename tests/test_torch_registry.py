@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from hwbloomradixjoin_tpu.config import BloomArgs as JBloomArgs
 from hwbloomradixjoin_tpu.config import EngineConfig as JEngineConfig
 from hwbloomradixjoin_tpu.config import RadixConfig as JRadixConfig
 from hwbloomradixjoin_tpu.data import native
@@ -227,23 +228,34 @@ def test_fourteen_bit_count_span_takes_cuda_prho():
     ("PRO", EngineConfig(), {"key8b": True, "bloom": True}),
     ("PRHO", EngineConfig(materialize=True), {"stats": None}),
 ])
-def test_unported_tiers_raise(algo, cfg, kw):
-    """KEY_8B raises its ROADMAP slice; materialization, ported since,
-    runs on the kernel tier, with ref_join's count and pairs, for an R
-    declared unique and for one with no stats whose keys do not repeat (the
-    planner's table shows it, as in the JAX package)."""
+def test_key8b_and_materialize_tiers_run(algo, cfg, kw):
+    """KEY_8B (which raised until its tiers were ported) takes cuda_key8b
+    for a unique R whose high words are zero: ref_join's count, and with a
+    filter the JAX package's s_after_filter; materialization runs on the
+    kernel tier, with ref_join's count and pairs, for an R declared unique
+    and for one with no stats whose keys do not repeat (the planner's table
+    shows it, as in the JAX package)."""
     rk, rp, sk, sp = _workload(n_r=500, n_s=2000)
     stats = kw.get("stats", KeyStats(1, 500, is_unique=True))
     R = Relation.from_numpy(rk, rp, device="cpu", stats=stats,
                             key8b=kw.get("key8b", False))
     S = Relation.from_numpy(sk, sp, device="cpu",
                             key8b=kw.get("key8b", False))
-    bloom = BloomArgs() if kw.get("bloom") else None
-    if not cfg.materialize:
-        with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
-            run_join(algo, R, S, cfg, bloom)
-        return
+    bloom = BloomArgs(m=1 << 16) if kw.get("bloom") else None
     res, st, sums = run_join(algo, R, S, cfg, bloom)
+    if not cfg.materialize:
+        assert st.tier == "cuda_key8b" and sums == (0, 0)
+        assert res.count() == native.ref_join(rk, rp, sk, sp)[0]
+        if bloom is not None:
+            jres, jst, _ = jax_run_join(
+                algo, JRelation.from_numpy(
+                    rk, rp, key8b=True,
+                    stats=JKeyStats(1, 500, is_unique=True)),
+                JRelation.from_numpy(sk, sp, key8b=True), JEngineConfig(),
+                JBloomArgs(m=1 << 16))
+            assert jst.tier == "key8b" and jres.count() == res.count()
+            assert res.s_after_filter == jres.s_after_filter
+        return
     assert st.tier == "cuda_materialize"
     rmap = dict(zip(rk.tolist(), rp.tolist()))
     want = sorted((rmap[k], p) for k, p in zip(sk.tolist(), sp.tolist())
@@ -251,7 +263,6 @@ def test_unported_tiers_raise(algo, cfg, kw):
     assert res.count() == len(want) == native.ref_join(rk, rp, sk, sp)[0]
     assert sorted(zip(res.r_payload.tolist(), res.s_payload.tolist())) \
         == want
-    assert set(registry.UNPORTED_TIERS) == {"key8b", "materialize8b"}
 
 
 def test_dense_gate_needs_a_cuda_tensor():
@@ -280,6 +291,11 @@ res, st, _ = run_join("PRO", Relation.from_numpy(rk, rp, device="cpu",
                                                  stats=G.r_key_stats(p)), S)
 prho = run_join("PRHO", Relation.from_numpy(rk, rp, device="cpu"), S)
 rec = bench.run_bench("cpu", 2000, 40000, selectivity=0.01, repeats=1, inner=1)
+from hwbloomradixjoin_tpu_torch import cli, confrun, unittests
+from hwbloomradixjoin_tpu_torch.data import tblio
+from hwbloomradixjoin_tpu_torch.utils import profiling, roofline
+cli.main(["-r", "2000", "-s", "10000", "--key8b", "-z", "0.5", "--verbose",
+          "--engine-backend", "cpu"])
 print(json.dumps({"jax": [m for m in sys.modules
                           if m in ("jax", "hwbloomradixjoin_tpu")
                           or m.startswith(("jax.", "hwbloomradixjoin_tpu."))],
@@ -292,8 +308,9 @@ print(json.dumps({"jax": [m for m in sys.modules
 
 def test_package_imports_no_jax_builds_nothing_on_cpu():
     """In a fresh process: the port and CPU runs of it (PRO on the radix
-    tier, PRHO on the count-table tier) import no jax and no JAX package,
-    build and load no kernel, and count no launches."""
+    tier, PRHO on the count-table tier, the CLI over 16-byte tuples and a
+    Zipf S) import no jax and no JAX package, build and load no kernel, and
+    count no launches."""
     out = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": REPO})
