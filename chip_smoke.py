@@ -87,7 +87,22 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    count |S|, the host generation time, the hottest key's share of S and
    the bitmap probe's largest CTA share of the keys it walks (beside the
    uniform q = 1 S's);
-   every run of 4-4l has the launch counts reset just before and read just
+4m. the distributed join (parallel/dist_join.py) on a world of one over
+   NCCL at 4's relations: the sort-scan and bitmap local engines at q = 1
+   and q = 0.01 (count and checksums the ht tier's on the card; the bitmap
+   engine launches kernels 1, 3 and 4), and through 4e's blocked filter at
+   q = 0.01, its S-tuples after filter run_join's in the same call; each
+   time beside run_join's;
+4n. the standalone operators: radix_cluster over 4's S (128M keys, 6
+   bits: kernel 1, its twin's output), radix_sort of 128M (key, row)
+   rows (ordered, stable), and, over 4l's Zipf S, group_by_key (counts
+   total |S|, sums the values' mod 2^32, the host's group count, a 2^20-row
+   slice equal to the CPU's) and join_group_count with R (totals the
+   join's count); each timed;
+4o. 4 gloo processes sharing the card (parallel/multiproc.py's dry run,
+   2^22 ⋈ 2^25): the filter, a heavy key and a Zipf S with skew handling,
+   the Zipf S without it, the bitmap engine; every result the host's;
+   every run of 4-4n has the launch counts reset just before and read just
    after; every kernel of its path must have launched;
 5. kernel and twin times at the main paths' full shapes (the bloom kernels
    over 4d's and 4e's S, pass 2 in hash mode at the flagship's 10 + 3 bits,
@@ -104,7 +119,9 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    with --key8b at workload A, -z 1.0 at 16M ⋈ 128M, -a PRHO at 2^24 ⋈
    2^24, --materialize --out-file (the pairs read back with the port's
    tblio against the host's), --verbose (the H100 roofline) and
-   --engine-trace (a trace file), each Results line exact and the output
+   --engine-trace (a trace file), --engine-devices 1 at 16M ⋈ 128M with
+   each local engine (tier dist[1]/<engine>, no [WARN ] line), each
+   Results line exact and the output
    parsed by measurements/run.py's parse_result; confrun on a JSON conf;
    unittests tests 0 and 1 (the closed-form (h, y)).
 
@@ -1358,8 +1375,183 @@ def run_zipf(dev, kind, launches, sms, pro_plan):
     print(f"Zipf z={ZIPF_Z}: host generation {gen_s:.1f}s, hottest key "
           f"{hot * 100:.3f} % of S; bitmap probe {split(plan)} (uniform "
           f"q = 1: {split(pro_plan)})", flush=True)
-    del plan, R, S
+    del plan
+    run_aggregates(dev, sk, R, S)
+    del R, S
     torch.cuda.empty_cache()
+
+
+def run_distributed(dev, kind, launches, pro):
+    """Phase 4m: the distributed join (parallel/dist_join.py) on a world of
+    one over NCCL at PRO's 16M ⋈ 128M: the sort-scan and the bitmap
+    (pallas) local engines at q = 1 and q = 0.01, count and checksums
+    against the ht tier's on the card (the pallas engine count only, with
+    kernels 1, 3 and 4 launched), then 4e's blocked filter (m = 2^27, k =
+    1, B = 512) at q = 0.01 on both engines, its S-tuples after filter equal
+    to run_join's in the same call; each time beside run_join("PRO")'s."""
+    import torch
+    import torch.distributed as dist
+    from hwbloomradixjoin_tpu_torch.config import (BloomArgs, BloomVariant,
+                                                   EngineConfig)
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.kernels import _build
+    from hwbloomradixjoin_tpu_torch.parallel import dist_join, mesh
+    from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
+
+    group = mesh.make_mesh(1, dev)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"world of one on {dist.get_backend()}")
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 27, k=1, B=512)
+    cfg = EngineConfig(allow_dense=False)
+    try:
+        for q in (1.0, 0.01):
+            _, R, S = pro[q]
+            expect = G.expected_uniform_match_count(S_SIZE, q)
+            _, sums = plain_reference("PRO", R, S, f"dist q={q}")
+            _, st, _, _ = drive("PRO", R, S, cfg, (), f"run_join PRO q={q}",
+                                kind)
+            runs = [(e, None) for e in dist_join.ENGINES]
+            if q != 1.0:
+                _, bst, _, _ = drive("PRO", R, S, cfg, (),
+                                     f"run_join BPRO q={q}", kind,
+                                     bloom_args=args)
+                runs += [(e, args) for e in dist_join.ENGINES]
+            for engine, bloom_args in runs:
+                plan = dist_join.plan_dist_join(
+                    group, R.key, R.payload, S.key, S.payload, bloom_args,
+                    local_engine=engine, device=dev)
+                label = f"dist[1] {engine}{' + filter' if bloom_args else ''}"
+                _build.reset_launches()
+                out = [int(v) for v in plan.run()]
+                ran = dict(_build.LAUNCHES)
+                want = [expect, *(sums if engine == "sortscan" else (0, 0)),
+                        -1 if bloom_args is None else bst.s_after_filter, 0]
+                if out != want:
+                    raise AssertionError(f"{label} q={q}: {out} != {want}")
+                if engine == "pallas":
+                    missing = [k for k in ("partition", "bitmap_build",
+                                           "bitmap_probe") if not ran[k]]
+                    if missing:
+                        raise AssertionError(f"{label}: kernels never "
+                                             f"launched: {missing}")
+                    add_launches(launches, ran)
+                ms = time_usec(plan.run, dev) / 1e3
+                ref = bst if bloom_args is not None else st
+                print(f"{label} q={q} on {kind}: count={out[0]} sums="
+                      f"{out[1:3]} s_after_filter={out[3]} overflow={out[4]}"
+                      f" total={ms:.4f}ms (run_join {'BPRO' if bloom_args else 'PRO'} "
+                      f"{ref.total_usec / 1e3:.4f}ms) launches={ran}",
+                      flush=True)
+                del plan
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_operators(dev, R, S, kind, launches):
+    """Phase 4n: the standalone operators over PRO q = 1's S (128M keys):
+    radix_cluster at 6 bits of [1, 16M] (kernel 1; each chunk a stable
+    bucket-major permutation: the twin's output on the card) and
+    radix_sort of (key, row) rows, ordered and stable; each timed."""
+    import torch
+    from hwbloomradixjoin_tpu_torch.kernels import _build
+    from hwbloomradixjoin_tpu_torch.ops import radix as X
+    from hwbloomradixjoin_tpu_torch.ops import sort
+    from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
+
+    keys = S.key[:S_SIZE]
+    _build.reset_launches()
+    out, starts = sort.radix_cluster(keys, 1, R_SIZE, 6, device=dev)
+    ran = dict(_build.LAUNCHES)
+    if not ran["partition"]:
+        raise AssertionError("radix_cluster: kernel 1 never launched")
+    add_launches(launches, ran)
+    geom = X.RadixGeom(chunk_rows=1024, part_bits=6, lo=1, hi=R_SIZE,
+                       shift=(R_SIZE - 1).bit_length() - 6)
+    t_out, t_starts = X.partition_pass_plain(
+        X._chunk_pad(keys, 1024 * 128, dev), geom)
+    if not (torch.equal(out, t_out)
+            and torch.equal(starts.view(-1, 128), t_starts)):
+        raise AssertionError("radix_cluster differs from its twin")
+    del t_out, t_starts
+    ms = time_usec(lambda: sort.radix_cluster(keys, 1, R_SIZE, 6,
+                                              device=dev), dev) / 1e3
+    print(f"radix_cluster 128M keys, 6 bits, {starts.shape[0]} chunks: "
+          f"the twin's permutation and starts; {ms:.4f} ms; launches={ran}",
+          flush=True)
+    del out, starts
+    rows = torch.arange(keys.numel(), dtype=torch.int32, device=dev)
+    ks, ps = sort.radix_sort(keys, rows)
+    up = ks[1:] > ks[:-1]
+    tie = (ks[1:] == ks[:-1]) & (ps[1:] > ps[:-1])
+    if not bool((up | tie).all()) or not torch.equal(keys[ps.long()], ks) \
+            or not bool((torch.bincount(ps.long(), minlength=keys.numel())
+                         == 1).all()):
+        raise AssertionError("radix_sort: not a stable ordering")
+    del ks, ps, up, tie
+    ms = time_usec(lambda: sort.radix_sort(keys, rows), dev) / 1e3
+    print(f"radix_sort 128M (key, row) rows: ordered and stable; {ms:.4f} "
+          "ms", flush=True)
+    del rows
+    torch.cuda.empty_cache()
+
+
+def run_aggregates(dev, sk, R, S):
+    """Phase 4n, over 4l's Zipf S (z = 1.0, 128M keys over R's 16M):
+    group_by_key with S's payloads as values (the counts total |S|, the
+    sums total the values mod 2^32, the groups as many as the host's
+    distinct keys, and a 2^20-row slice equal to the CPU function's
+    output), and join_group_count of R with S (the group counts total the
+    join's count, |S|); each timed."""
+    import torch
+    from hwbloomradixjoin_tpu_torch.ops import aggregate
+    from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
+
+    uk, uc, us, ng = aggregate.group_by_key(S.key, S.payload)
+    want_ng = int(np.count_nonzero(np.bincount(sk)))
+    vsum = int((S.payload.long() & 0xFFFFFFFF).sum()) % 2**32
+    if int(ng) != want_ng or int(uc.long().sum()) != S_SIZE \
+            or int(us.sum()) % 2**32 != vsum:
+        raise AssertionError(f"group_by_key: {int(ng)} groups (host "
+                             f"{want_ng}), counts {int(uc.long().sum())}")
+    n = 1 << 20
+    got = aggregate.group_by_key(S.key[:n], S.payload[:n])
+    want = aggregate.group_by_key(S.key[:n].cpu(), S.payload[:n].cpu())
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("group_by_key: the 2^20-row slice differs "
+                             "from the CPU's")
+    del uk, uc, us, got
+    ms = time_usec(lambda: aggregate.group_by_key(S.key, S.payload),
+                   dev) / 1e3
+    print(f"group_by_key Zipf z={ZIPF_Z} 128M rows: {want_ng} groups = the "
+          f"host's, counts total |S|, sums the values' mod 2^32, 2^20 rows "
+          f"= the CPU's; {ms:.4f} ms", flush=True)
+    keys, cnts, ng = aggregate.join_group_count(R.key, S.key)
+    if int(cnts.long().sum()) != S_SIZE:
+        raise AssertionError(f"join_group_count totals "
+                             f"{int(cnts.long().sum())} != {S_SIZE}")
+    del keys, cnts
+    ms = time_usec(lambda: aggregate.join_group_count(R.key, S.key),
+                   dev) / 1e3
+    print(f"join_group_count R x Zipf S: {int(ng)} groups totalling the "
+          f"join's {S_SIZE}; {ms:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+
+
+def run_ranks_on_one_card() -> None:
+    """Phase 4o: the multiproc dry run as 4 gloo processes sharing the
+    card (NCCL takes one process a card), 2^22 ⋈ 2^25: the blocked filter,
+    a heavy key and a Zipf S (z = 1.0) with skew handling, the Zipf S
+    without it, and the bitmap engine; every count and checksum equal to
+    ref_join's, the survivors to the host filter's.  Its host times are
+    gloo's staging through the host, no multi-GPU number."""
+    from hwbloomradixjoin_tpu_torch.parallel import multiproc
+
+    t0 = time.perf_counter()
+    multiproc.dryrun(4, "cuda", "gloo", r_size=1 << 22, s_size=1 << 25,
+                     m=1 << 25)
+    print(f"4 gloo ranks on one card: {time.perf_counter() - t0:.1f}s wall",
+          flush=True)
 
 
 def cli(args, expect, label, module="cli", tier=None):
@@ -1393,8 +1585,13 @@ def cli(args, expect, label, module="cli", tier=None):
     if d is not None:
         if d["results"] != expect or d["out-tuples"] != expect:
             raise AssertionError(f"{label}: parse_result {d}")
+        # the distributed join reports no phases, only its tier; it warns
+        # of nothing (a capacity drop would make its count invalid)
+        if tier is not None and tier.startswith("dist[") and "[WARN ]" in out:
+            raise AssertionError(f"{label}: a warning\n{out}")
         if tier is not None and (f"[SYNC] tier={tier} " not in out
-                                 or d["partition-usecs"] <= 0):
+                                 or (d["partition-usecs"] <= 0
+                                     and not tier.startswith("dist["))):
             raise AssertionError(f"{label}: not tier {tier} with a "
                                  f"partition\n{out}")
         print(f"{label}: Results = {expect}, total "
@@ -1426,6 +1623,11 @@ def run_entry_points() -> None:
          "--engine-no-dense"], S_SIZE, f"cli -z {ZIPF_Z}", tier="cuda_radix")
     cli(["-a", "PRHO", "-r", 1 << 24, "-s", 1 << 24, "--engine-no-dense"],
         1 << 24, "cli PRHO 2^24 x 2^24", tier="cuda_prho")
+    for engine in ("sortscan", "pallas"):
+        cli(["-a", "PRO", "-r", R_SIZE, "-s", S_SIZE, "-n", 8,
+             "--engine-devices", 1, "--engine-local-join", engine], S_SIZE,
+            f"cli --engine-devices 1 --engine-local-join {engine}",
+            tier=f"dist[1]/{engine}")
     with tempfile.TemporaryDirectory() as tmp:
         out_tbl = os.path.join(tmp, "Out.tbl")
         n = G.expected_uniform_match_count(800_000, 0.5)
@@ -1684,6 +1886,10 @@ def main():
     pro = {q: run_pro_path(dev, q, kind, launches) for q in (1.0, 0.01)}
     pro_plans = {q: plan for q, (plan, _, _) in pro.items()}
     t0 = done("4 (PRO 16M x 128M)", t0)
+    run_distributed(dev, kind, launches, pro)
+    t0 = done("4m (distributed join, a world of one over NCCL)", t0)
+    run_operators(dev, *pro[1.0][1:], kind, launches)
+    t0 = done("4n (radix_cluster, radix_sort)", t0)
     b_plan, b_r, b_s, b_sums, probe_ms = run_workload_b(dev, kind, launches)
     t0 = done("4b (workload B)", t0)
     probe_ms = {13: probe_ms, **run_wide_bits(b_r, b_s, b_sums, kind,
@@ -1722,7 +1928,10 @@ def main():
     t0 = done("4k (workload A, KEY_8B)", t0)
     sms = run_split.card_sms(dev)
     run_zipf(dev, kind, launches, sms, pro_plans[1.0])
-    t0 = done("4l (Zipf PRO 16M x 128M)", t0)
+    t0 = done("4l (Zipf PRO 16M x 128M), 4n (group_by_key, "
+              "join_group_count)", t0)
+    run_ranks_on_one_card()
+    t0 = done("4o (4 gloo ranks on one card)", t0)
 
     times = time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in,
                          mat_plan, gp_parts, err)

@@ -11,20 +11,28 @@ or two partition passes), the count-table engines (PRHO, PRH, NPO, and PRO
 over a non-unique build side, with both payload checksums), the bloom
 pre-filter, the dense fast path, materialization, the general radix count
 join (``ops.radix.radix_join_count``), KEY_8B (16-byte tuples), the
-portable ``ht``/``sortscan``/``materialize`` tiers and the reference's
-command line (``cli``, ``confrun``, ``unittests``); distribution is not (see
-ROADMAP.md).  Entry points run on the card unless given ``device="cpu"``.
+portable ``ht``/``sortscan``/``materialize`` tiers, the reference's
+command line (``cli``, ``confrun``, ``unittests``), the standalone operators
+(``ops.sort``, ``ops.aggregate``) and the distributed join on
+``torch.distributed`` (``parallel``: one process a device, the bitmap
+kernels or a sort-scan as each device's local join).  Entry points run on
+the card unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
-from hwbloomradixjoin_tpu_torch.config import EngineConfig, RadixConfig
-from hwbloomradixjoin_tpu_torch.types import JoinResult, KeyStats, Relation
+from hwbloomradixjoin_tpu_torch.config import (BloomArgs, BloomVariant,
+                                               EngineConfig, RadixConfig)
+from hwbloomradixjoin_tpu_torch.types import (JoinResult, KeyStats, Relation,
+                                              key_dtype)
 
 __all__ = [
     "Relation",
     "JoinResult",
     "KeyStats",
+    "key_dtype",
+    "BloomArgs",
+    "BloomVariant",
     "RadixConfig",
     "EngineConfig",
 ]

@@ -4,8 +4,9 @@ The JAX package's ``interpret`` flag is gone: a wrapper launches its CUDA
 kernel for a tensor on the card and runs its plain PyTorch twin for a tensor
 on the CPU, so the device of the input tensors decides.  There is no
 ``key8b`` field: a relation built with ``Relation.from_numpy(...,
-key8b=True)`` carries high words, and they alone pick the KEY_8B tiers.  The
-distributed skew handling arrives with ROADMAP slice 9.
+key8b=True)`` carries high words, and they alone pick the KEY_8B tiers.  Nor
+is there a ``skew_handling`` field, which nothing in the JAX package reads:
+the distributed join takes it as an argument (``parallel/dist_join.py``).
 """
 
 from __future__ import annotations

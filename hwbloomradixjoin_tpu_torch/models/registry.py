@@ -486,21 +486,24 @@ def _run_wide(tier: str, R: Relation, S: Relation, bloom_args,
     API), and every S row whose low word is PAD becomes the (PAD, PAD)
     pair, which no relation may hold, as in the JAX package.
 
-    ``materialize8b`` needs an R declared unique: the JAX function emits no
-    pair for a key that repeats in R, where the reference emits one a copy
-    (ROADMAP §3), so the port raises instead of dropping pairs.
+    ``materialize8b`` over an R declared unique takes the JAX package's
+    function; over any other R it emits every (R, S) pair, one a copy of
+    each R key, as the reference does, the output sized by a pre-count over
+    the unfiltered S that runs before the timed join and is not in its
+    time, as the 32-bit tier's.  (The JAX package's tier emits no pair for
+    a key that repeats in R, ROADMAP §3.)
     """
-    if tier == "materialize8b" and not (R.stats is not None
-                                        and R.stats.is_unique):
-        raise NotImplementedError(
-            "materialize8b over an R not declared unique: the JAX package "
-            "drops the pairs of repeated keys (ROADMAP §3)")
-
     def hi_or_zero(hi, lo):
         return torch.zeros_like(lo) if hi is None else hi
 
     r_phi = hi_or_zero(R.payload_hi, R.payload)
     s_phi = hi_or_zero(S.payload_hi, S.payload)
+    cap = None
+    if tier == "materialize8b" and not (R.stats is not None
+                                        and R.stats.is_unique):
+        s_hi = torch.where(S.key == PAD_KEY, PAD_KEY, S.key_hi)
+        cap = max(int(xla_join.sort_scan_count_wide(
+            R.key_hi, R.key, R.payload, s_hi, S.key, S.payload)[0]), 1)
 
     def full():
         s_lo, n = S.key, None
@@ -508,10 +511,14 @@ def _run_wide(tier: str, R: Relation, S: Relation, bloom_args,
             mask, n = bloom_join.bloom_prune(R.key, S.key, bloom_args)
             s_lo = torch.where(mask, S.key, PAD_KEY)
         s_hi = torch.where(s_lo == PAD_KEY, PAD_KEY, S.key_hi)
-        if tier == "materialize8b":
+        if tier == "materialize8b" and cap is None:
             out = xla_join.sort_scan_materialize_wide(
                 R.key_hi, R.key, r_phi, R.payload, s_hi, s_lo, s_phi,
                 S.payload)
+        elif tier == "materialize8b":
+            out = xla_join.sort_scan_materialize_wide_multi(
+                R.key_hi, R.key, r_phi, R.payload, s_hi, s_lo, s_phi,
+                S.payload, cap)
         elif R.payload_hi is None:
             out = xla_join.sort_scan_count_wide(R.key_hi, R.key, R.payload,
                                                 s_hi, s_lo, S.payload)

@@ -358,6 +358,80 @@ class RadixJoinPlan:
         return fns
 
 
+# The JAX package's window cap (bitmap_join.py:612), kept for its overflow
+# flag (see traced_radix_count).
+C_ROWS_CAP = 1024
+
+
+def traced_c_rows(part_bits: int, chunk_rows: int, slack: int = 4) -> int:
+    """The rows of the static window the JAX package's sync-free join gives
+    a run (its _traced_probe_geom, bitmap_join.py:639-650): `slack` times
+    a uniform bucket's mean run, a power of two in [8, min(chunk_rows,
+    C_ROWS_CAP)]."""
+    mean_rows = max(chunk_rows >> max(part_bits, 0), 1)
+    return max(8, min(1 << (slack * mean_rows - 1).bit_length(), chunk_rows,
+                      C_ROWS_CAP))
+
+
+def max_run(starts: torch.Tensor, nchunks: int, part_bits: int):
+    """The longest bucket run of a partition (its pad category aside), from
+    its starts: a 0-d tensor (JAX bitmap_join.py:669)."""
+    st = starts.reshape(nchunks, -1)[:, :(1 << part_bits) + 1]
+    return (st[:, 1:] - st[:, :-1]).max()
+
+
+def traced_radix_count(r_key, s_key, lo: int, hi: int,
+                       chunk_rows: Optional[int] = None,
+                       num_radix_bits: Optional[int] = None):
+    """The JAX package's sync-free bitmap join (bitmap_join.py:674), the
+    local join of the distributed engine: (count, overflow), 0-d tensors.
+
+    R partition -> bitmap build -> S partition -> probe at plan_geometry's
+    and plan_build_geometry's layouts (survivor_frac 1, no compaction);
+    kernels 1, 3 and 4 on the card, their twins on the CPU.  Count only;
+    needs unique R keys in [lo, hi].  r_key and s_key: flat int32 tensors
+    on the device the join runs on.
+
+    overflow is the JAX package's flag: 1 when a bucket run of a chunk,
+    on either side, exceeds the static window that package sizes at
+    traced_c_rows, where the JAX count is no longer valid.  The port's
+    kernels walk runs of any length, so its count is exact whatever the
+    flag says; the flag is kept to be held against JAX's, and the
+    distributed join does not read it.  Unlike the
+    JAX function this one is not free of host syncs: the build and the
+    probe read the partitions' starts back to plan their splits
+    (ops/run_split.py).
+    """
+    chunk_rows = CHUNK_ROWS if chunk_rows is None else chunk_rows
+    chunk = chunk_rows * LANES
+    dev = r_key.device
+    part_bits, shift, sl_rows = plan_geometry(lo, hi, num_radix_bits, 1.0)
+    bits_r, shift_r, sl_rows_r = plan_build_geometry(lo, hi, part_bits,
+                                                     shift, sl_rows)
+    plan = RadixJoinPlan(
+        rk_in=radix_ops._chunk_pad(r_key.reshape(-1), chunk, dev),
+        sk_in=radix_ops._chunk_pad(s_key.reshape(-1), chunk, dev), lo=lo,
+        hi=hi, rgeom=radix_ops.RadixGeom(chunk_rows=chunk_rows,
+                                         part_bits=bits_r, lo=lo, hi=hi,
+                                         shift=shift_r),
+        r_sl_rows=sl_rows_r, sgeom=radix_ops.RadixGeom(
+            chunk_rows=chunk_rows, part_bits=part_bits, lo=lo, hi=hi,
+            shift=shift), sl_rows=sl_rows, cap_rows=None)
+    r_part, r_starts = plan.r_partition()
+    bitmap = plan.build(r_part, r_starts)
+    s_part, s_starts = plan.s_partition(plan.sk_in)
+    count = plan.probe(bitmap, s_part, s_starts)
+    # a run of L keys starting mid-row spans ceil(L / 128) + 1 window rows,
+    # so a run fits its window when L <= (c_rows - 1) * 128
+    ovf = torch.zeros((), dtype=torch.int32, device=dev)
+    for part, starts, bits in ((r_part, r_starts, bits_r),
+                               (s_part, s_starts, part_bits)):
+        nchunks = part.numel() // chunk
+        limit = (traced_c_rows(bits, chunk_rows) - 1) * LANES
+        ovf += (max_run(starts, nchunks, bits) > limit).int()
+    return count, ovf
+
+
 def plan_radix_join(r_key, s_key, lo: int, hi: int, device="cuda",
                     chunk_rows: int = CHUNK_ROWS,
                     num_radix_bits: Optional[int] = None,

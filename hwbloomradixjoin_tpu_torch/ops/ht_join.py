@@ -1,6 +1,6 @@
 """Perfect-addressed count-table join (the ``ht`` tier), plain PyTorch.
 
-Counterpart of ``hwbloomradixjoin_tpu/ops/ht_join.py:34-66``: the build
+Counterpart of ``hwbloomradixjoin_tpu/ops/ht_join.py``: the build
 scatters a multiplicity table (and a payload-sum table mod 2^32) over R's key
 range [lo, hi]; the probe gathers one slot per S key.  Exact for any key
 multiset.  Sums are taken in int64 and reduced mod 2^32, the JAX package's
@@ -43,3 +43,28 @@ def probe_tables(cnt_tbl: torch.Tensor, pay_tbl: torch.Tensor,
         sum_rpay = torch.zeros((), dtype=torch.int64, device=s_key.device)
     sum_spay = ((s_pay.long() & MASK32) * mult & MASK32).sum() & MASK32
     return count, sum_rpay, sum_spay
+
+
+def counttable_join_count(r_key: torch.Tensor, r_pay: torch.Tensor,
+                          s_key: torch.Tensor, s_pay: torch.Tensor,
+                          lo: int, hi: int, with_checksums: bool = True):
+    """Join count and checksums through a count table over R's declared key
+    range [lo, hi] (JAX ht_join.py:68): (count, sum_rpay, sum_spay) as
+    sort_scan_count gives them; sum_rpay is 0 without checksums.  S keys
+    outside the range cannot match; R keys outside it would be dropped, so
+    callers pass the true range.  PAD slots on either side fall outside it.
+    """
+    cnt_tbl, pay_tbl = build_tables(r_key, r_pay, lo, hi,
+                                    with_paysum=with_checksums)
+    return probe_tables(cnt_tbl, pay_tbl, s_key, s_pay, lo, hi)
+
+
+def counttable_probe_mask(r_key: torch.Tensor, s_key: torch.Tensor, lo: int,
+                          hi: int) -> torch.Tensor:
+    """Exact membership of each S key in R's keys within [lo, hi]: bool
+    (JAX ht_join.py:84)."""
+    present = torch.zeros(hi - lo + 1, dtype=torch.bool, device=r_key.device)
+    ok = (r_key >= lo) & (r_key <= hi)
+    present[r_key[ok].long() - lo] = True
+    s_ok = (s_key >= lo) & (s_key <= hi)
+    return s_ok & present[torch.where(s_ok, s_key.long() - lo, 0)]

@@ -107,7 +107,14 @@ def sort_scan_materialize_multi(r_key, r_pay, s_key, s_pay, out_cap: int):
     r_payload_out, s_payload_out, key_out), array for array the JAX
     package's sort_scan_materialize_multi (xla_join.py:282).
     """
-    key, tag, pay = sort_rows(r_key, r_pay, s_key, s_pay)
+    return _all_pairs(*sort_rows(r_key, r_pay, s_key, s_pay), out_cap,
+                      -2**31)
+
+
+def _all_pairs(key, tag, pay, out_cap: int, pad: int):
+    """Every (R, S) pair of rows sorted by (key, tag), R rows first in each
+    key segment: (count, R payloads, S payloads, keys) of out_cap rows, the
+    pairs in (key, S order, R order) order, the rest `pad`."""
     n = key.shape[0]
     is_r, seg_start, r_pref = _segments(key, tag)
     # R rows sort before every S row of their key, so at an S row r_pref
@@ -121,9 +128,55 @@ def sort_scan_materialize_multi(r_key, r_pay, s_key, s_pay, out_cap: int):
     i = torch.clamp(torch.searchsorted(csum, j, right=True), max=n - 1)
     src_r = torch.clamp(seg_start[i] + j - (csum - m)[i], max=n - 1)
     valid = j < total
-    pad = torch.tensor(-2**31, dtype=torch.int32, device=key.device)
+    pad = torch.tensor(pad, dtype=key.dtype, device=key.device)
     return (total, torch.where(valid, pay[src_r], pad),
             torch.where(valid, pay[i], pad), torch.where(valid, key[i], pad))
+
+
+def hash_multiplicative(keys: torch.Tensor, bits: int) -> torch.Tensor:
+    """Cheap bucket hash: the top `bits` bits of the uint32 Knuth product
+    key * 2654435761 (JAX xla_join.py:160), int32.  The product and the
+    logical shift are taken in int64: torch's >> on int32 is arithmetic."""
+    h = ((keys.long() & MASK32) * 2654435761) & MASK32
+    return (h >> (32 - bits)).to(torch.int32)
+
+
+def csr_hash_join_count(r_key, r_pay, s_key, s_pay, bits: int | None = None,
+                        max_bucket: int = 8):
+    """NPO-shaped join: a CSR-bucketized R table and a windowed probe
+    (JAX xla_join.py:166).
+
+    bits: log2 of the bucket count; by default ~2 tuples a bucket, the
+    reference's BUCKET_SIZE = 2 (npj_params.h:18).  max_bucket: the probe
+    window; overflow (a 0-d bool) is True when a bucket holds more R
+    tuples, and the matches past the window are then not counted.  Returns
+    (count, sum of matched R payloads, sum of matched S payloads, overflow),
+    the sums mod 2^32.
+    """
+    nr = r_key.shape[0]
+    if bits is None:
+        bits = max((max(nr // 2, 1) - 1).bit_length(), 1)
+    rb = hash_multiplicative(r_key, bits)
+    order = torch.sort(rb, stable=True).indices
+    rk_s, rp_s = r_key[order], r_pay[order].long() & MASK32
+    offsets = torch.searchsorted(
+        rb[order], torch.arange((1 << bits) + 1, dtype=torch.int32,
+                                device=r_key.device))
+    counts = offsets[1:] - offsets[:-1]
+    overflow = counts.max() > max_bucket
+
+    sb = hash_multiplicative(s_key, bits).long()
+    start, scount = offsets[sb], counts[sb]
+    sp = s_pay.long() & MASK32
+    cnt = sum_rp = sum_sp = torch.zeros((), dtype=torch.int64,
+                                        device=s_key.device)
+    for j in range(max_bucket):
+        idx = torch.clamp(start + j, max=nr - 1)
+        hit = (j < scount) & (rk_s[idx] == s_key)
+        cnt = cnt + hit.sum()
+        sum_rp = sum_rp + torch.where(hit, rp_s[idx], 0).sum()
+        sum_sp = sum_sp + torch.where(hit, sp, 0).sum()
+    return cnt, sum_rp & MASK32, sum_sp & MASK32, overflow
 
 
 # KEY_8B: 64-bit keys and payloads ride as (hi, lo) int32 columns, as in the
@@ -198,7 +251,8 @@ def sort_scan_materialize_wide(r_khi, r_klo, r_phi, r_plo,
 
     Like the JAX function, an S row matches only when its key segment holds
     exactly one R row: for a key that repeats in R it emits no pair, where
-    the reference emits one pair a copy.  Callers pass a unique R.
+    the reference emits one pair a copy.  Callers pass a unique R, and
+    sort_scan_materialize_wide_multi serves any other.
     """
     ns = s_klo.shape[0]
     key, tag, pay = sort_rows_wide(wide(r_khi, r_klo), wide(s_khi, s_klo),
@@ -213,3 +267,19 @@ def sort_scan_materialize_wide(r_khi, r_klo, r_phi, r_plo,
     out_s[:count] = pay[rows]
     out_k[:count] = key[rows]
     return torch.tensor(count, device=key.device), out_r, out_s, out_k
+
+
+def sort_scan_materialize_wide_multi(r_khi, r_klo, r_phi, r_plo,
+                                     s_khi, s_klo, s_phi, s_plo,
+                                     out_cap: int):
+    """Materialized KEY_8B join for any R: every (R, S) pair, one a copy of
+    each R key, as the reference emits them (parallel_radix_join.c:255-330).
+
+    sort_scan_materialize_multi over the int64 key column of
+    sort_rows_wide, payloads as int64: (count, R payloads, S payloads,
+    keys), out_cap int64 rows (callers pre-count with
+    sort_scan_count_wide), rows past the count PAD_PAIR in all three.
+    """
+    return _all_pairs(*sort_rows_wide(wide(r_khi, r_klo), wide(s_khi, s_klo),
+                                      wide(r_phi, r_plo), wide(s_phi, s_plo)),
+                      out_cap, PAD_PAIR)

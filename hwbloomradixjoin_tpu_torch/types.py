@@ -18,6 +18,12 @@ import torch
 PAD_KEY = -2**31
 
 
+def key_dtype(key8b: bool = False) -> torch.dtype:
+    """Key and payload dtype: int32 (8-byte tuples) or int64 (16-byte
+    tuples, KEY_8B), as the JAX package's key_dtype."""
+    return torch.int64 if key8b else torch.int32
+
+
 @dataclasses.dataclass(frozen=True)
 class KeyStats:
     """Declared key metadata (constraint-grade, set by construction).

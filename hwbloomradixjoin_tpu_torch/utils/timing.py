@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from contextlib import contextmanager
 from typing import Callable
 
 import torch
@@ -60,6 +61,35 @@ def _elapsed_usec(fn: Callable[[], object], device: torch.device,
     for _ in range(calls):
         fn()
     return (time.perf_counter() - t0) * 1e6 / calls
+
+
+class PhaseTimer:
+    """Accumulated time of named phases, in usec (JAX utils/timing.py:47).
+
+    On the card each phase is timed by CUDA events recorded on the current
+    stream around it, and the end event is waited for as the phase closes;
+    on the CPU by the host clock.
+    """
+
+    def __init__(self, device="cuda"):
+        self.device = torch.device(device)
+        self.phases: dict[str, float] = {}
+
+    @contextmanager
+    def phase(self, name: str):
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            end.synchronize()
+            usec = start.elapsed_time(end) * 1e3
+        else:
+            t0 = time.perf_counter()
+            yield
+            usec = (time.perf_counter() - t0) * 1e6
+        self.phases[name] = self.phases.get(name, 0.0) + usec
 
 
 _REPEATS = 3       # measurements; the best one is reported

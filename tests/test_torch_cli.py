@@ -187,9 +187,11 @@ def test_verbose_roofline_bounds_only_the_bitmap_join(monkeypatch, case):
 
 
 def test_cli_refuses_distribution_and_a_missing_card(monkeypatch):
-    """--engine-devices raises naming slice 9; without a card, every backend
-    but cpu raises (no quiet CPU fallback), the conf's backend too."""
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    """--engine-devices 2 raises without a launcher (this process is one
+    device: no ranks are started behind the caller's back); without a card,
+    every backend but cpu raises (no quiet CPU fallback), the conf's
+    backend too."""
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
         cli.main(["--engine-devices", "2", *SMALL])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for backend in ([], ["--engine-backend", "auto"],

@@ -35,8 +35,10 @@ category covering most of S over a sentinel-filled allocator, no starts
 refused), the gathered probe (duplicates, empty buckets, a largest bucket
 of 1 key and of one below, at and one past its capacity, every capacity
 class of its hash table in one call, runs of 0 and 1 keys, the radix count
-geometry at 2M x 8M keys), the default config's dense tier and the launch
-counters.  This file imports no jax, so on a machine without it run:
+geometry at 2M x 8M keys), the default config's dense tier, the launch
+counters, the standalone operators (radix_cluster, radix_sort,
+group_by_key, join_group_count), the sync-free local join, the distributed
+join on a world of one over NCCL and materialize8b's all pairs.  This file imports no jax, so on a machine without it run:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -1491,3 +1493,145 @@ def test_cli_pro_on_card(cuda, capsys):
     d = parse_result(out)
     assert d["results"] == d["out-tuples"] == 4_000_000
     assert "roofline" in out
+
+
+@pytest.mark.parametrize("lo,hi,bits,chunk_rows", [(1, 16_000_000, 6, 1024),
+                                                   (-5000, 5000, 3, 64),
+                                                   (0, 2**31 - 2, 12, 256)])
+def test_radix_cluster_on_card_equals_twin(cuda, lo, hi, bits, chunk_rows):
+    """The radix_cluster operator launches kernel 1 and equals its twin on
+    the same keys (keys outside [lo, hi] and PAD in the tail), and its
+    starts take the (nchunks, cat_rows, 128) shape."""
+    from hwbloomradixjoin_tpu_torch.ops import sort
+    rng = np.random.default_rng(51)
+    keys = rng.integers(max(lo - 100, -2**31 + 1), min(hi + 100, 2**31 - 1),
+                        1_000_003).astype(np.int32)
+    keys[::29] = PAD
+    _build.reset_launches()
+    out, starts = sort.radix_cluster(keys, lo, hi, bits, chunk_rows, cuda)
+    assert _build.LAUNCHES["partition"] == 1
+    want = sort.radix_cluster(keys, lo, hi, bits, chunk_rows, "cpu")
+    assert torch.equal(out.cpu(), want[0])
+    assert torch.equal(starts.cpu(), want[1])
+    assert starts.shape[1:] == (want[1].shape[1], 128)
+
+
+@pytest.mark.parametrize("values", [False, True])
+def test_group_by_key_and_join_group_count_on_card_equal_cpu(cuda, values):
+    """group_by_key (sums wrapping past 2^32) and join_group_count on the
+    card give the CPU's outputs element for element, and the stable
+    radix_sort (descending too) the CPU's order."""
+    from hwbloomradixjoin_tpu_torch.ops import aggregate, sort
+    rng = np.random.default_rng(53)
+    sk = torch.from_numpy(rng.zipf(1.3, 2_000_000).clip(1, 2**31 - 1)
+                          .astype(np.int32))
+    sk[::101] = PAD
+    vals = torch.from_numpy(rng.integers(2**30, 2**31, len(sk))
+                            .astype(np.int32)) if values else None
+    rk = torch.from_numpy(rng.integers(1, 5000, 300_000).astype(np.int32))
+    got = aggregate.group_by_key(sk.to(cuda), None if vals is None
+                                 else vals.to(cuda))
+    want = aggregate.group_by_key(sk, vals)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    got = aggregate.join_group_count(rk.to(cuda), sk.to(cuda))
+    want = aggregate.join_group_count(rk, sk)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    pays = torch.arange(len(sk), dtype=torch.int32)
+    for desc in (False, True):
+        got = sort.radix_sort(sk.to(cuda), pays.to(cuda), descending=desc)
+        want = sort.radix_sort(sk, pays, descending=desc)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.fixture
+def nccl_world(cuda):
+    """A world of one over NCCL on this process, destroyed after."""
+    import torch.distributed as dist
+    from hwbloomradixjoin_tpu_torch.parallel import mesh
+    group = mesh.make_mesh(1, cuda)
+    yield group
+    dist.destroy_process_group()
+
+
+def test_dist_join_world_of_one_over_nccl(cuda, nccl_world):
+    """dist_join_count on a world of one over NCCL: the sort-scan engine's
+    count and checksums and the bitmap engine's count (kernels 1, 3 and 4
+    launched) equal ref_join's, through the blocked filter too (its
+    survivors the host filter's)."""
+    import torch.distributed as dist
+    from hwbloomradixjoin_tpu_torch.config import BloomArgs, BloomVariant
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.data import native
+    from hwbloomradixjoin_tpu_torch.parallel import dist_join
+    assert dist.get_backend() == "nccl"
+    # at 2 bits of [1, 2^20] R's dense runs pass JAX's window and set its
+    # flag in traced_radix_count; the kernels count them exactly, and the
+    # join's overflow counts only tuples the buffers dropped: none
+    rk, rp, sk, sp = G.build_workload(G.WorkloadParams(
+        r_size=1 << 20, s_size=1 << 23, nthreads=4, selectivity=0.5))
+    assert int(B.traced_radix_count(torch.from_numpy(rk),
+                                    torch.from_numpy(sk), 1, 1 << 20)[1])
+    cnt, sr, ss = native.ref_join(rk, rp, sk, sp)
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 23, k=2, B=512)
+    after = int(bloom.probe_bitmap_host(bloom.build_bitmap_host(rk, args),
+                                        sk, args).sum())
+    for engine in ("sortscan", "pallas"):
+        for bloom_args in (None, args):
+            _build.reset_launches()
+            out = [int(v) for v in dist_join.dist_join_count(
+                nccl_world, rk, rp, sk, sp, bloom_args=bloom_args,
+                local_engine=engine, device=cuda)]
+            sums = [0, 0] if engine == "pallas" else [sr % 2**32,
+                                                      ss % 2**32]
+            assert out == [cnt, *sums, -1 if bloom_args is None else after,
+                           0], (engine, bloom_args)
+            if engine == "pallas":
+                for name in ("partition", "bitmap_build", "bitmap_probe"):
+                    assert _build.LAUNCHES[name] > 0, name
+
+
+def test_traced_radix_count_on_card_equals_twin(cuda):
+    """The sync-free local join on the card: kernels 1, 3 and 4, the
+    twin's count and JAX's window flag, with and without a key heavy
+    enough to set it."""
+    rng = np.random.default_rng(57)
+    rk = torch.from_numpy((rng.choice(1 << 24, 200_000, replace=False) + 1)
+                          .astype(np.int32))
+    sk = rng.integers(1, 1 << 25, 3_000_000).astype(np.int32)
+    for heavy in (False, True):
+        if heavy:
+            sk[:40_000] = 12_345
+        s = torch.from_numpy(sk)
+        got = B.traced_radix_count(rk.to(cuda), s.to(cuda), 1, 1 << 24)
+        want = B.traced_radix_count(rk, s, 1, 1 << 24)
+        assert [int(v) for v in got] == [int(v) for v in want]
+        assert int(got[1]) == int(heavy)
+
+
+def test_materialize8b_all_pairs_on_card(cuda):
+    """materialize8b over a repeated 16-byte R key on the card: every (R,
+    S) pair, as the host's all-pairs join and ref_join's count give them."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig
+    from hwbloomradixjoin_tpu_torch.data import native
+    from hwbloomradixjoin_tpu_torch.models import run_join
+    from hwbloomradixjoin_tpu_torch.types import Relation
+    rng = np.random.default_rng(59)
+    rk = rng.integers(1, 40_000, 60_000).astype(np.int64)
+    sk = rng.integers(1, 60_000, 400_000).astype(np.int64)
+    rp = rng.integers(-2**31, 2**31, len(rk)).astype(np.int64)
+    sp = rng.integers(-2**31, 2**31, len(sk)).astype(np.int64)
+    res, st, _ = run_join("PRO", Relation.from_numpy(rk, rp, device=cuda,
+                                                     key8b=True),
+                          Relation.from_numpy(sk, sp, device=cuda,
+                                              key8b=True),
+                          EngineConfig(materialize=True))
+    pays = {}
+    for k, p in zip(rk.tolist(), rp.tolist()):
+        pays.setdefault(k, []).append(p)
+    want = sorted((r, p) for k, p in zip(sk.tolist(), sp.tolist())
+                  for r in pays.get(k, []))
+    assert st.tier == "materialize8b"
+    assert res.count() == len(want) == native.ref_join(rk, rp, sk, sp)[0]
+    assert sorted(zip(res.r_payload.tolist(), res.s_payload.tolist())) == want

@@ -237,12 +237,14 @@ def test_materialize8b_pairs_match_jax():
                                                                sp)
 
 
-def test_materialize8b_repeated_r_key_raises():
+def test_materialize8b_repeated_r_key_gives_every_pair():
     """The JAX package's materialize8b emits no pair for an S row whose key
     repeats in R (its sort_scan_materialize_wide keeps segments with one R
     row), where the reference emits one pair a copy: pinned here on a key
-    that R holds three times.  The port raises for an R not declared
-    unique (ROADMAP §3)."""
+    that R holds three times, 3 pairs of the reference's 9.  The port's
+    materialize8b, over an R not declared unique, emits all 9; over
+    random 16-byte columns with keys twice and three times in R, its pairs
+    equal the host's all-pairs join."""
     rk = np.array([5, 7, 7, 7, 9], np.int64)
     rp = np.array([50, 70, 71, 72, 90], np.int64)
     sk = np.array([7, 5, 7, 9, 11, 9], np.int64)
@@ -257,8 +259,32 @@ def test_materialize8b_repeated_r_key_raises():
                       np.asarray(jres.s_payload)[:n].tolist())) == \
         [(50, 2), (90, 4), (90, 6)]
     # the reference's all-pairs join: one pair a copy of each R key
-    assert sum(int((rk == k).sum()) for k in sk) == 9
-    R = Relation.from_numpy(rk, rp, device="cpu", key8b=True)
-    S = Relation.from_numpy(sk, sp, device="cpu", key8b=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP §3"):
-        run_join("PRO", R, S, EngineConfig(materialize=True))
+    want = [(50, 2), (70, 1), (70, 3), (71, 1), (71, 3), (72, 1), (72, 3),
+            (90, 4), (90, 6)]
+    assert sum(int((rk == k).sum()) for k in sk) == len(want)
+    res, st, sums = run_join(
+        "PRO", Relation.from_numpy(rk, rp, device="cpu", key8b=True),
+        Relation.from_numpy(sk, sp, device="cpu", key8b=True),
+        EngineConfig(materialize=True))
+    assert st.tier == "materialize8b" and sums == (0, 0)
+    assert res.count() == 9 and res.r_payload.dtype == torch.int64
+    assert sorted(zip(res.r_payload.tolist(), res.s_payload.tolist())) == want
+    # the keys and payloads fit 32 bits: ref_join's count and sums agree
+    assert native.ref_join(rk, rp, sk, sp) == (
+        9, sum(r for r, _ in want), sum(s for _, s in want))
+
+    r_hi, r_lo, s_hi, s_lo, r_phi, r_plo, s_phi, s_plo = _wide_columns()
+    rk, sk = _fold_cols(r_hi, r_lo), _fold_cols(s_hi, s_lo)
+    rp, sp = _fold_cols(r_phi, r_plo), _fold_cols(s_phi, s_plo)
+    res, st, _ = run_join(
+        "PRO", Relation.from_numpy(rk, rp, device="cpu", key8b=True),
+        Relation.from_numpy(sk, sp, device="cpu", key8b=True),
+        EngineConfig(materialize=True))
+    pays = {}
+    for k, p in zip(rk.tolist(), rp.tolist()):
+        pays.setdefault(k, []).append(p)
+    want = sorted((r, p) for k, p in zip(sk.tolist(), sp.tolist())
+                  if k != X.PAD_PAIR for r in pays.get(k, []))
+    assert max(len(v) for v in pays.values()) == 3
+    assert res.count() == len(want) > 0
+    assert sorted(zip(res.r_payload.tolist(), res.s_payload.tolist())) == want

@@ -294,8 +294,13 @@ rec = bench.run_bench("cpu", 2000, 40000, selectivity=0.01, repeats=1, inner=1)
 from hwbloomradixjoin_tpu_torch import cli, confrun, unittests
 from hwbloomradixjoin_tpu_torch.data import tblio
 from hwbloomradixjoin_tpu_torch.utils import profiling, roofline
+from hwbloomradixjoin_tpu_torch.ops import aggregate, sort
+from hwbloomradixjoin_tpu_torch.parallel import dist_join, mesh, multiproc
+from hwbloomradixjoin_tpu_torch.parallel import skew
 cli.main(["-r", "2000", "-s", "10000", "--key8b", "-z", "0.5", "--verbose",
           "--engine-backend", "cpu"])
+cli.main(["-r", "2000", "-s", "10000", "--engine-devices", "1",
+          "--engine-local-join", "pallas", "--engine-backend", "cpu"])
 print(json.dumps({"jax": [m for m in sys.modules
                           if m in ("jax", "hwbloomradixjoin_tpu")
                           or m.startswith(("jax.", "hwbloomradixjoin_tpu."))],
@@ -309,8 +314,9 @@ print(json.dumps({"jax": [m for m in sys.modules
 def test_package_imports_no_jax_builds_nothing_on_cpu():
     """In a fresh process: the port and CPU runs of it (PRO on the radix
     tier, PRHO on the count-table tier, the CLI over 16-byte tuples and a
-    Zipf S) import no jax and no JAX package, build and load no kernel, and
-    count no launches."""
+    Zipf S, and its distributed join of one device on the bitmap engine)
+    import no jax and no JAX package, build and load no kernel, and count
+    no launches."""
     out = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": REPO})
