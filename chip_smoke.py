@@ -25,12 +25,15 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    hash-mode partition at the flagship's pass-1
    geometry (10 of 21 bits), pass 2 in range mode (b1 = b2 = 6 over
    [1, 16M]) and in hash mode (b1 = 10, b2 = 3), the bitmap probe over the
-   range regions, and the bloom probe against an m = 2^30, k = 1, B = 512
-   filter in every class (staged over the hash regions and over pass 1's
-   chunks, flat without starts) and against m = 2^27 over a 10-bit hash
-   partition, over an S holding PAD, negative keys and keys at or above
-   2^31 - 2^20; the survivors also equal the plain prune's on the card and
-   the reference filter's (native.ref_bloom) on the host;
+   range regions, and the bloom probe against m = 2^30, B = 512 filters at
+   k = 1, 2 and 4 in every class (staged over the hash regions and over
+   pass 1's chunks, flat without starts) and against m = 2^27 over a 10-bit
+   hash partition, over an S holding PAD, negative keys and keys at or
+   above 2^31 - 2^20; each k's survivors also equal the plain prune's on
+   the card and the reference filter's (native.ref_bloom) on the host;
+   3f. the partition, the bitmap build and the bitmap probe at the full
+   int32 span's geometry (13, 18, 64), R's PAD category on, over
+   validate_fullrange's workload (2 + 4 chunks), the count the host's;
    3e. the dense count (keys at lo - 1 and hi + 1, negative keys, PAD,
    payloads at +-2^31 so the sum wraps, a length with a 3-key tail),
    materialization at the count geometry of [1, 16M] (R payloads equal to
@@ -54,6 +57,14 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
 4e. BPRO 16M ⋈ 128M at q = 0.01 with a blocked filter (k = 1, m = 2^27,
    B = 512): one 10-bit hash pass, exact count, S-tuples after filter
    equal to the plain prune's on the card, the build equal to the twin's;
+4p. the validation tools at full size: validate_fullrange's PRO and BPRO
+   (blocked, m = 2^30, k = 4, B = 512) over a sparse unique R of 16M keys
+   over [1, 2^31) and 128M S keys whose misses lie inside R's span (plan
+   (13, 18, 64), R's PAD category, the host's count), and validate_bloom's
+   BPRO over 4's q = 0.01 relations at k = 2 and 4 (m = 2^30): each count
+   exact, S-tuples after filter the plain prune's on the card, the
+   survivor share within 20 % of p + (1 - p) fpr (p the real match share),
+   the kernels of each path launched, one time line each;
 4f. BRJ 128M ⋈ 1.024B at q = 0.01, blocked, k = 1, m = 2^30, B = 512 (the
    reference's headline bloom run, BASELINE.md:43): the two-pass prune
    (10 + 3 bits), the same checks (the build at 8 bits of 64 KiB slices
@@ -122,8 +133,12 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    --engine-trace (a trace file), --engine-devices 1 at 16M ⋈ 128M with
    each local engine (tier dist[1]/<engine>, no [WARN ] line), each
    Results line exact and the output
-   parsed by measurements/run.py's parse_result; confrun on a JSON conf;
-   unittests tests 0 and 1 (the closed-form (h, y)).
+   parsed by the port's measurements.run.parse_result; confrun on a JSON
+   conf; unittests tests 0 and 1 (the closed-form (h, y));
+6b. the port's sweep driver (python -m
+   hwbloomradixjoin_tpu_torch.measurements.run's quick sweep, in process):
+   three CLI subprocesses on the card, each row parsed, with its tier and
+   an exact Results line.
 
 Prints, in order: the card line, each phase's results and wall time, a
 {"kernels": [...]} JSON line, and as the last line {"ok": true, "device":
@@ -152,6 +167,7 @@ A_S_SIZE = 1 << 28            # 2^28 (rerun-experiments.sh:52-60)
 A_MAT_R_SIZE = 1 << 20        # materialize8b: 2^20 ⋈ 2^24
 A_MAT_S_SIZE = 1 << 24
 ZIPF_Z = 1.0                  # the Zipf PRO cell: S Zipf over R's 16M keys
+BLOOM_KS = (1, 2, 4)          # bits a key in its block: validate_bloom's k
 PAD_KEY = -2**31
 SRC = "hwbloomradixjoin_tpu_torch/csrc/"
 KERNELS = {   # wrapper name -> (route, source, TPU kernel it replaces)
@@ -359,6 +375,58 @@ def compare_build_geometries(dev, rng, err) -> None:
           flush=True)
 
 
+def compare_fullrange_kernels(dev, rng, err) -> None:
+    """Phase 3f: kernels 1, 3 and 4 against their twins on 2 chunks of R
+    and 4 of S at the full int32 span's geometry, plan_geometry(1, 2^31 - 1) = (13, 18, 64):
+    8,192 buckets, 32 KiB slices, R's PAD category on (pad_cat_safe is
+    false), S with PAD.  R and S are validate_fullrange's workload: a
+    sparse unique R over [1, 2^31), S's misses inside R's span."""
+    import torch
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join as B
+    from hwbloomradixjoin_tpu_torch.ops import radix as X
+    from hwbloomradixjoin_tpu_torch.tools import validate_fullrange as VF
+
+    chunk = B.CHUNK_ROWS * 128
+    rk, sk = VF.build_inrange_workload(2 * chunk - 3000, 4 * chunk - 5000,
+                                       0.3, seed=int(rng.integers(1 << 30)))
+    lo, hi = int(rk.min()), int(rk.max())
+    pb, shift, slr = B.plan_geometry(lo, hi)
+    rb, rshift, rslr = B.plan_build_geometry(lo, hi, pb, shift, slr)
+    if (pb, shift, slr) != VF.FULL_SPAN_GEOMETRY or X.pad_cat_safe(lo, hi) \
+            or (rb, rshift, rslr) != (pb, shift, slr):
+        raise AssertionError(f"full span: geometry {(pb, shift, slr)}")
+    r_in = X._chunk_pad(rk, 2 * chunk, dev)
+    s_in = X._chunk_pad(sk, 4 * chunk, dev)
+    rgeom = X.RadixGeom(chunk_rows=B.CHUNK_ROWS, part_bits=rb, lo=lo, hi=hi,
+                        shift=rshift, pad_cat=True)
+    sgeom = X.RadixGeom(chunk_rows=B.CHUNK_ROWS, part_bits=pb, lo=lo, hi=hi,
+                        shift=shift)
+    for keys, geom in ((r_in, rgeom), (s_in, sgeom)):
+        record(err, "partition", X.partition_pass(keys, geom),
+               X.partition_pass_plain(keys, geom))
+    r_part, r_starts = X.partition_pass(r_in, rgeom)
+    split = B.build_split(r_part, r_starts, rshift, rb)
+    bm = B.bitmap_build(r_part, lo, hi, rb, rshift, rslr, r_starts)
+    record(err, "bitmap_build", bm,
+           B.build_bitmap(r_part, lo, hi, rb, rshift, rslr))
+    s_part, s_starts = X.partition_pass(s_in, sgeom)
+    pclass = B.probe_split(s_part, s_starts, shift, pb)
+    got = B.bitmap_probe_count(bm, s_part, lo, shift, pb, slr, s_starts)
+    record(err, "bitmap_probe", got,
+           B.bitmap_probe_count_plain(bm, s_part, lo, shift, pb, slr))
+    truth = VF.host_count(rk, sk)
+    if int(got) != truth:
+        raise AssertionError(f"full span probe {int(got)} != host {truth}")
+    del bm
+    torch.cuda.empty_cache()
+    print(f"kernel vs twin: bit-exact partition, build and probe at the "
+          f"full span's {(pb, shift, slr)}, R's PAD category, "
+          f"{r_in.numel() // chunk} + {s_in.numel() // chunk} chunks; build "
+          f"{'flat' if split is None else f'staged nb={split.nb}'}, probe "
+          f"{'flat' if pclass is None else f'staged {pclass.ctas} CTAs'}; "
+          f"count {truth} = host", flush=True)
+
+
 def check_build(label, plan, err) -> None:
     """The bitmap build of a planned join's R partition (the main path's
     full shape) against its twin, bit for bit."""
@@ -531,24 +599,47 @@ def compare_bloom_kernels(dev, rng, err) -> None:
     regions = M.pass2_partition(s1, st1, h2)
     record(err, "pass2_partition_hash", regions,
            M.pass2_partition_plain(s1, st1, h2))
-    words = bloom.build_bitmap(torch.from_numpy(rk).to(dev), args)
     # the bloom probe in every class: staged over the hash regions (the
     # flagship's), staged over pass 1's chunks (128 KiB slices: a skewed
-    # S's), flat without starts, then staged over 4e's one-pass chunks
+    # S's), flat without starts, then staged over 4e's one-pass chunks; at
+    # m = 2^30 with k = 1, 2 and 4 bits a key in its 512-bit block, each
+    # k's survivors the plain prune's and the reference filter's
     b2 = part_bits - b1
     classes = {"regions": (regions[0], dict(starts=regions[1],
                                             part_bits=part_bits, seg_bits=b2)),
                "chunks": (s1, dict(starts=st1, part_bits=b1)),
                "flat": (regions[0], {})}
-    for name, (keys, kw) in classes.items():
-        staged = BP.probe_split(keys.reshape(-1), args, **kw) is not None
-        if staged != (name != "flat"):
-            raise AssertionError(f"bloom probe over {name}: staged {staged}")
-        got = BP.bloom_probe_prune(words, keys, args, **kw)
-        record(err, "bloom_probe", got,
-               BP.bloom_probe_prune_plain(words, keys, args))
-        if name == "regions":
-            pruned = got
+    kept = {}
+    for k in BLOOM_KS:
+        args_k = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 30, k=k,
+                           B=512)
+        words = bloom.build_bitmap(torch.from_numpy(rk).to(dev), args_k)
+        for name, (keys, kw) in classes.items():
+            staged = BP.probe_split(keys.reshape(-1), args_k,
+                                    **kw) is not None
+            if staged != (name != "flat"):
+                raise AssertionError(f"bloom probe over {name}: staged "
+                                     f"{staged}")
+            got = BP.bloom_probe_prune(words, keys, args_k, **kw)
+            record(err, "bloom_probe", got,
+                   BP.bloom_probe_prune_plain(words, keys, args_k))
+            if name == "regions":
+                pruned = got
+        mask, _ = bloom_join.bloom_prune(torch.from_numpy(rk).to(dev), s_in,
+                                         args_k)
+        want = np.sort(sk[native.ref_bloom("blocked", args_k.m, k, 512,
+                                           args_k.seed, rk, sk)
+                          & (sk != PAD_KEY)])
+        keep = mask & (s_in != PAD_KEY)
+        got = survivors(pruned[0])
+        if not (np.array_equal(got, want)
+                and np.array_equal(got, survivors(s_in[keep]))
+                and int(pruned[1]) == len(want) == int(keep.sum())):
+            raise AssertionError(f"bloom survivors at k={k}: kernel "
+                                 f"{len(got)}, plain {int(keep.sum())}, "
+                                 f"reference {len(want)}")
+        kept[k] = len(want)
+        del words
     args27 = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 27, k=1, B=512)
     g27 = X.RadixGeom(chunk_rows=chunk_rows, part_bits=10,
                       hash_seed=args27.seed, hash_bits=18)
@@ -558,24 +649,13 @@ def compare_bloom_kernels(dev, rng, err) -> None:
            BP.bloom_probe_prune(words27, h27, args27, starts=st27,
                                 part_bits=10),
            BP.bloom_probe_prune_plain(words27, h27, args27))
-    mask, n_plain = bloom_join.bloom_prune(torch.from_numpy(rk).to(dev),
-                                           s_in, args)
-    want = np.sort(sk[native.ref_bloom("blocked", args.m, args.k, args.B,
-                                       args.seed, rk, sk) & (sk != PAD_KEY)])
-    keep = mask & (s_in != PAD_KEY)
-    got = survivors(pruned[0])
-    if not (np.array_equal(got, want)
-            and np.array_equal(got, survivors(s_in[keep]))
-            and int(pruned[1]) == len(want) == int(keep.sum())):
-        raise AssertionError(f"bloom survivors: kernel {len(got)}, plain "
-                             f"{int(keep.sum())}, reference {len(want)}")
     print(f"kernel vs twin: bit-exact hash partition {(b1, hash_bits)}, "
           f"pass 2 range ({rb1}+{rb2} bits, c1_rows "
           f"{p2.c1_rows}) and hash ({b1}+{part_bits - b1} bits, c1_rows "
           f"{h2.c1_rows}), the bitmap probe over range regions (flat, and "
           f"staged at 3 + 3 bits), bloom "
-          f"probe m=2^30 k=1 B=512 (staged over regions and chunks, flat) "
-          f"and m=2^27 (10 bits): {len(want)} survivors = plain prune = "
+          f"probe m=2^30 B=512 (staged over regions and chunks, flat) and "
+          f"m=2^27 (10 bits): survivors by k {kept} = plain prune = "
           f"reference filter", flush=True)
 
 
@@ -872,6 +952,70 @@ def run_flagship(dev, kind, launches, err):
         allow_dense=False), *registry.key_ranges(R), bloom_args=args)
     check_build("BRJ 128M x 1.024B", plan, err)
     return class_cells("flagship", plan, run_split.card_sms(dev))
+
+
+def validated(label, R, S, n_s, expected, args, must, kind, launches,
+              geometry=None):
+    """One of the validation tools' joins (validate_fullrange's
+    validate_join: the count, the tier, the geometry if given, S-tuples
+    after filter against the plain prune and the survivor theory), with
+    the launch counts reset just before run_join and read as it returns;
+    every kernel in `must` has to have launched."""
+    from hwbloomradixjoin_tpu_torch.config import EngineConfig
+    from hwbloomradixjoin_tpu_torch.kernels import _build
+    from hwbloomradixjoin_tpu_torch.tools import validate_fullrange as VF
+
+    ran = {}
+    _build.reset_launches()
+    ok, st, line = VF.validate_join(
+        label, R, S, n_s, expected, EngineConfig(allow_dense=False), args,
+        geometry, inner_repeats=4,
+        on_joined=lambda: ran.update(_build.LAUNCHES))
+    print(f"{line} launches={ran}", flush=True)
+    if not ok:
+        raise AssertionError(line)
+    missing = [k for k in must if ran[k] == 0]
+    if missing:
+        raise AssertionError(f"{label} on {kind}: kernels never launched: "
+                             f"{missing}")
+    add_launches(launches, ran)
+    return st
+
+
+def run_validations(dev, R, S, kind, launches):
+    """Phase 4p: the validation tools' joins at full size.  validate_
+    fullrange: PRO and BPRO (blocked, m = 2^30, k = 4, B = 512) over a
+    sparse unique R of 16M keys over [1, 2^31) and 128M S keys whose misses
+    lie inside R's span, plan (13, 18, 64) with R's PAD category, counted
+    against the host; validate_bloom: BPRO over PRO q = 0.01's relations
+    (R, S) at k = 2 and 4 (m = 2^30).  Each count exact, S-tuples after
+    filter the plain prune's, the survivors within 20 % of theory."""
+    import torch
+    from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.tools import validate_fullrange as VF
+
+    part = ("partition", "bitmap_build", "bitmap_probe")
+    prune = ("partition_hash", "pass2_partition_hash", "bloom_probe")
+    t0 = time.perf_counter()
+    rk, sk = VF.build_inrange_workload(R_SIZE, S_SIZE, 0.01)
+    want = VF.host_count(rk, sk)
+    fr, fs = VF.relations(rk, sk, dev)
+    del rk, sk
+    gen_s = time.perf_counter() - t0
+    print(f"full span: host generation and count {gen_s:.1f}s, expect "
+          f"{want} of {S_SIZE}", flush=True)
+    validated("full-span PRO 16M x 128M", fr, fs, S_SIZE, want, None, part,
+              kind, launches, VF.FULL_SPAN_GEOMETRY)
+    validated("full-span BPRO blocked m=2^30 k=4 B=512", fr, fs, S_SIZE,
+              want, VF.blocked(1 << 30, 4), part + prune, kind, launches,
+              VF.FULL_SPAN_GEOMETRY)
+    del fr, fs
+    torch.cuda.empty_cache()
+    want = G.expected_uniform_match_count(S_SIZE, 0.01)
+    for k in BLOOM_KS[1:]:
+        validated(f"BPRO 16M x 128M q=0.01 blocked m=2^30 k={k} B=512", R, S,
+                  S_SIZE, want, VF.blocked(1 << 30, k), part + prune, kind,
+                  launches)
 
 
 def class_cells(label, plan, sms) -> list:
@@ -1556,16 +1700,14 @@ def run_ranks_on_one_card() -> None:
 
 def cli(args, expect, label, module="cli", tier=None):
     """One run of the port's command line (python -m ...) in a subprocess:
-    its stdout, parsed by measurements/run.py's parse_result when it prints
-    the relation lines, with Results = expect.  With tier, the run adds
-    --engine-sync-stats and must name that tier and report partition
+    its stdout, parsed by the port's measurements.run.parse_result when it
+    prints the relation lines, with Results = expect.  With tier, the run
+    adds --engine-sync-stats and must name that tier and report partition
     time."""
     import sys
     from pathlib import Path
+    from hwbloomradixjoin_tpu_torch.measurements.run import parse_result
     root = Path(__file__).resolve().parent
-    sys.path.insert(0, str(root / "measurements"))
-    sys.path.insert(0, str(root))
-    from measurements.run import parse_result
 
     if tier is not None:
         args = [*args, "--engine-sync-stats"]
@@ -1686,6 +1828,31 @@ def run_entry_points() -> None:
     if not out.startswith(want) or "cycles_per_hash" not in out:
         raise AssertionError(f"unittests 1:\n{out}")
     print(out.strip().replace("\n", " | "), flush=True)
+
+
+def run_quick_sweep() -> None:
+    """Phase 6b: the port's sweep driver (measurements.run) runs its quick
+    sweep through the CLI on the card, one subprocess a configuration:
+    every row parsed by the port's parse_result, with a tier and an exact
+    Results line."""
+    import tempfile
+    from hwbloomradixjoin_tpu_torch.measurements import run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = run.sweep_quick(out_dir=tmp)
+        saved = run.load_rows("quick", tmp)
+    for r in rows:
+        if not (r["exact"] and r["results"] == r["out-tuples"]
+                and r["tier"] and r["backend"] == "auto"):
+            raise AssertionError(f"quick sweep row: {r}")
+        print(f"sweep quick: {r['algorithm']} bloom={r['bloom_filter']} "
+              f"tier={r['tier']} Results={r['results']} (expected "
+              f"{r['expected']}) filtered={r['filtered']} "
+              f"{r['time-usecs'] / 1e3:.4f} ms; {r['wall-secs']:.1f}s wall",
+              flush=True)
+    if len(rows) != 3 or saved != rows:
+        raise AssertionError(f"quick sweep: {len(rows)} rows, saved "
+                             f"{len(saved)}")
 
 
 def nbytes(*tensors) -> int:
@@ -1879,6 +2046,8 @@ def main():
     compare_build_geometries(dev, rng, err)
     compare_bloom_kernels(dev, rng, err)
     t0 = done("3d (build geometries, bloom kernels vs twins)", t0)
+    compare_fullrange_kernels(dev, rng, err)
+    t0 = done("3f (partition, build and probe at the full span)", t0)
     compare_new_kernels(dev, rng, err)
     t0 = done("3e (dense, materialize, gathered probe vs twins)", t0)
 
@@ -1904,6 +2073,8 @@ def main():
     t0 = done("4d (two-pass PRO)", t0)
     bpro = run_bpro(*pro[0.01][1:], kind, launches, err)
     t0 = done("4e (BPRO 16M x 128M)", t0)
+    run_validations(dev, *pro[0.01][1:], kind, launches)
+    t0 = done("4p (validate_fullrange, validate_bloom at k = 2, 4)", t0)
     for q in (1.0, 0.01):
         run_dense(*pro[q][1:], q, kind, launches)
     t0 = done("4g (dense PRO, EngineConfig())", t0)
@@ -1945,7 +2116,9 @@ def main():
     del pro_plans, b_plan, two_pass, bpro, dense_in, mat_plan, gp_parts
     torch.cuda.empty_cache()
     run_entry_points()
-    done("6 (entry points: cli, confrun, unittests)", t0)
+    t0 = done("6 (entry points: cli, confrun, unittests)", t0)
+    run_quick_sweep()
+    done("6b (measurements.run quick sweep)", t0)
     rows = [{"name": name, "route": route, "source": source,
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": err[name], "ms": times[name][0],

@@ -15,8 +15,10 @@ portable ``ht``/``sortscan``/``materialize`` tiers, the reference's
 command line (``cli``, ``confrun``, ``unittests``), the standalone operators
 (``ops.sort``, ``ops.aggregate``) and the distributed join on
 ``torch.distributed`` (``parallel``: one process a device, the bitmap
-kernels or a sort-scan as each device's local join).  Entry points run on
-the card unless given ``device="cpu"``.
+kernels or a sort-scan as each device's local join), and the measurement
+harness (``measurements.run``, the sweeps over the CLI;
+``tools.validate_fullrange`` and ``tools.validate_bloom``).  Entry points
+run on the card unless given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

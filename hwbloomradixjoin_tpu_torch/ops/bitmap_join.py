@@ -118,25 +118,24 @@ def build_bitmap(r_key: torch.Tensor, lo: int, hi: int, part_bits: int,
                  starts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain twin of the build: exact bitmap of R's keys in [lo, hi].
 
-    Global bit of a key = bucket * sl_rows*4096 + (norm & (2^shift - 1)); the
-    bits are set in a bool map and packed 32 to a word (bit j of a word is
-    weight 2^j), so the result is the OR of the keys' bits for any multiset.
+    Global bit of a key = bucket * sl_rows*4096 + (norm & (2^shift - 1));
+    each distinct bit adds 2^(bit & 31) into word bit >> 5 (bit j of a word
+    is weight 2^j), so the result is the OR of the keys' bits for any
+    multiset, and the temporaries are one int64 a word and a few a key.
     starts: the R partition's starts, if r_key is partitioned; its size is
     checked (build_split) and it is otherwise unread.
     """
     if starts is not None:
         build_split(r_key, starts, shift, part_bits)
     slice_bits = sl_rows * LANES * 32
-    nbits = (1 << part_bits) * slice_bits
+    nwords = (1 << part_bits) * slice_bits // 32
     key = r_key.reshape(-1).long()
     ok = (key >= lo) & (key <= hi)
     norm = key[ok] - lo
-    bitpos = (norm >> shift) * slice_bits + (norm & ((1 << shift) - 1))
-    bits = torch.zeros(nbits, dtype=torch.bool, device=r_key.device)
-    bits[bitpos] = True
-    weights = torch.ones(32, dtype=torch.int64, device=r_key.device) \
-        << torch.arange(32, device=r_key.device)
-    words = (bits.view(-1, 32).long() * weights).sum(dim=1)
+    bitpos = torch.unique((norm >> shift) * slice_bits
+                          + (norm & ((1 << shift) - 1)))
+    words = torch.zeros(nwords, dtype=torch.int64, device=r_key.device)
+    words.index_add_(0, bitpos >> 5, torch.ones_like(bitpos) << (bitpos & 31))
     words = torch.where(words >= 1 << 31, words - (1 << 32), words)
     return words.to(torch.int32).view((1 << part_bits) * sl_rows, LANES)
 

@@ -36,6 +36,8 @@ class JoinStats:
     # every timed phase in join order (usec), e.g. r_partition, build,
     # compact, s_partition, probe for the radix tier
     phases: dict = dataclasses.field(default_factory=dict)
+    # the radix tiers' probe plan: (part_bits, shift, sl_rows, pad_cat)
+    geometry: tuple | None = None
 
     @property
     def nsec_per_tuple(self) -> float:

@@ -8,6 +8,7 @@ count), and ``run_join`` with a filter against the JAX package's
 ``run_join``: count, checksums and S-tuples after filter.
 """
 
+import contextlib
 import functools
 
 import jax.numpy as jnp
@@ -21,8 +22,11 @@ from hwbloomradixjoin_tpu.config import EngineConfig as JEngineConfig
 from hwbloomradixjoin_tpu.config import RadixConfig as JRadixConfig
 from hwbloomradixjoin_tpu.models import bloom_join as jbloom_join
 from hwbloomradixjoin_tpu.models import run_join as jax_run_join
+from hwbloomradixjoin_tpu.ops import bitmap_join as jbitmap_join
 from hwbloomradixjoin_tpu.ops import bloom as jbloom
 from hwbloomradixjoin_tpu.ops import bloom_pallas as jbloom_pallas
+from hwbloomradixjoin_tpu.ops import multipass as jmultipass
+from hwbloomradixjoin_tpu.ops import prho_join as jprho_join
 from hwbloomradixjoin_tpu.types import KeyStats as JKeyStats
 from hwbloomradixjoin_tpu.types import Relation as JRelation
 from hwbloomradixjoin_tpu_torch.config import (BloomArgs, BloomVariant,
@@ -188,15 +192,15 @@ def test_plan_bloom_prune_matches_jax(monkeypatch, two_pass):
         monkeypatch.setattr(jbloom_pallas, "MAX_PART_BITS", 2)
     rng = np.random.default_rng(17)
     rk = rng.permutation(np.arange(1, 4001)).astype(np.int32)
-    sk = rng.integers(1, 30000, 40000).astype(np.int32)
+    sk = rng.integers(1, 30000, 10000).astype(np.int32)
     args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 22, k=2, B=512)
     plan = bloom_pallas.plan_bloom_prune(rk, sk, args, device="cpu",
-                                         chunk_rows=64)
+                                         chunk_rows=16)
     assert (plan.pass2 is not None) == two_pass
     assert plan.pgeom.part_bits == (2 if two_pass else 5)
     jplan = jbloom_pallas.plan_bloom_prune(jnp.asarray(rk), jnp.asarray(sk),
                                            _jargs(args), interpret=True,
-                                           chunk_rows=64)
+                                           chunk_rows=16)
     jpruned, jn = jplan.prune_fn(jnp.int32(0))
     want = np.sort(sk[native.ref_bloom("blocked", args.m, args.k, args.B,
                                        args.seed, rk, sk)])
@@ -293,13 +297,62 @@ def _workload(nonunique=False):
     else:
         rk = rng.permutation(np.arange(1, 4097)).astype(np.int32)
     rp = rng.integers(0, 2**31 - 1, len(rk)).astype(np.int32)
-    sk = rng.integers(1, 4 * 4096, 40_000).astype(np.int32)
+    sk = rng.integers(1, 4 * 4096, 10_000).astype(np.int32)
     sp = rng.integers(0, 2**31 - 1, len(sk)).astype(np.int32)
     return rk, rp, sk, sp
 
 
 BLOCKED = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 22, k=2, B=512)
 BASIC = BloomArgs(variant=BloomVariant.BASIC, m=1 << 16, k=3)
+
+
+# The chunk rows of the JAX planners in the interpret-mode references of
+# run_join: their tiers and plan shapes are those of the defaults (which
+# interpret mode caps at 1,024 rows: one chunk of 131,072 keys), over 3
+# chunks of 4,096 keys.  Most of a reference's time is XLA compiling its
+# interpreted kernels, which no size changes; the small chunks cut the
+# interpreted runs.
+JAX_CHUNK_ROWS = 32
+_JAX_PRUNES = {}
+
+
+def _shared_prune(plan_fn):
+    """The JAX Pallas prune planner, one plan for equal inputs: the PRO and
+    PRH references prune the same S with the same filter, and an
+    interpret-mode plan costs tens of seconds of compilation."""
+    def plan(r_key, s_key, args, interpret=False, chunk_rows=JAX_CHUNK_ROWS):
+        key = (np.asarray(r_key).tobytes(), np.asarray(s_key).tobytes(),
+               repr(args), interpret, chunk_rows, jbloom_pallas.MAX_PART_BITS)
+        if key not in _JAX_PRUNES:
+            _JAX_PRUNES[key] = plan_fn(r_key, s_key, args,
+                                       interpret=interpret,
+                                       chunk_rows=chunk_rows)
+        return _JAX_PRUNES[key]
+    return plan
+
+
+def _untimed(mp):
+    """The JAX plans' phase timings, which no test reads, return 0 without
+    compiling their own interpret-mode programs."""
+    for cls in (jbitmap_join.RadixJoinPlan, jprho_join.PrhoPlan,
+                jmultipass.TwoPassPlan):
+        mp.setattr(cls, "_time", lambda self, fn: 0.0)
+
+
+@contextlib.contextmanager
+def _jax_small_chunks():
+    """The JAX package's join and prune planners at JAX_CHUNK_ROWS, the
+    prune shared among equal inputs, the phase timings skipped."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name in ((jbitmap_join, "plan_radix_join"),
+                          (jprho_join, "plan_prho_join"),
+                          (jprho_join, "plan_prh_join")):
+            mp.setattr(mod, name, functools.partial(
+                getattr(mod, name), chunk_rows=JAX_CHUNK_ROWS))
+        mp.setattr(jbloom_pallas, "plan_bloom_prune",
+                   _shared_prune(jbloom_pallas.plan_bloom_prune))
+        _untimed(mp)
+        yield
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,10 +362,11 @@ def _jax_join(algo, nonunique, use_pallas, basic):
     stats = None if nonunique else JKeyStats(1, 4096, is_unique=True)
     cfg = JEngineConfig(interpret=True,
                         radix=JRadixConfig(use_pallas=use_pallas))
-    res, st, sums = jax_run_join(
-        algo, JRelation.from_numpy(rk, rp, stats=stats),
-        JRelation.from_numpy(sk, sp), cfg,
-        _jargs(BASIC if basic else BLOCKED))
+    with _jax_small_chunks():
+        res, st, sums = jax_run_join(
+            algo, JRelation.from_numpy(rk, rp, stats=stats),
+            JRelation.from_numpy(sk, sp), cfg,
+            _jargs(BASIC if basic else BLOCKED))
     return res.count(), st.tier, tuple(sums), res.s_after_filter
 
 

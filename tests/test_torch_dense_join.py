@@ -92,7 +92,8 @@ def test_dense_tier_matches_ref_join(bloom):
     args = None if bloom is None else BloomArgs(
         variant=BloomVariant(bloom), m=1 << 16, k=2, B=512)
     want = native.ref_join(rk, rp, sk, sp)
-    res, st, sums = registry._run_dense(R, S, args, 2, (1, 3000))
+    res, st, sums = registry._run_plan(
+        registry.DensePlan.of(R, S, args, (1, 3000)), "dense", S, 2)
     assert st.tier == "dense"
     assert res.count() == st.result == want[0]
     assert sums == (0, want[2] % 2**32)

@@ -8,6 +8,8 @@ slack in hash mode), the two-pass planner's geometry and its None cases,
 and run_join with RadixConfig(passes=2).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ from hwbloomradixjoin_tpu.config import BloomVariant as JBloomVariant
 from hwbloomradixjoin_tpu.config import EngineConfig as JEngineConfig
 from hwbloomradixjoin_tpu.config import RadixConfig as JRadixConfig
 from hwbloomradixjoin_tpu.models import run_join as jax_run_join
+from hwbloomradixjoin_tpu.ops import bitmap_join as jbitmap_join
+from hwbloomradixjoin_tpu.ops import bloom_pallas as jbloom_pallas
 from hwbloomradixjoin_tpu.ops import multipass as jmultipass
 from hwbloomradixjoin_tpu.ops import radix as jradix
 from hwbloomradixjoin_tpu.types import KeyStats as JKeyStats
@@ -155,12 +159,23 @@ def test_plan_radix_join_2pass_counts_exactly(two_pass_workload):
 
 
 @pytest.mark.parametrize("filtered", [False, True])
-def test_run_join_two_passes_matches_jax(two_pass_workload, filtered):
+def test_run_join_two_passes_matches_jax(monkeypatch, two_pass_workload,
+                                         filtered):
     """run_join("PRO", passes=2), without and behind a blocked filter: the
     two-pass plan, the JAX package's count and S-tuples after filter; a
-    fan-out the two-pass planner declines falls back to one pass."""
+    fan-out the two-pass planner declines falls back to one pass.  The JAX
+    planners run at 64-row chunks (interpret mode caps their default at
+    1,024 rows: one chunk here), the same plans over 4 chunks, and their
+    phase timings, which no assertion reads, compile nothing."""
+    for mod, name in ((jmultipass, "plan_radix_join_2pass"),
+                      (jbitmap_join, "plan_radix_join"),
+                      (jbloom_pallas, "plan_bloom_prune")):
+        monkeypatch.setattr(mod, name, functools.partial(getattr(mod, name),
+                                                         chunk_rows=64))
+    for cls in (jmultipass.TwoPassPlan, jbitmap_join.RadixJoinPlan):
+        monkeypatch.setattr(cls, "_time", lambda self, fn: 0.0)
     rk, rp, sk, sp = two_pass_workload
-    sk, sp = sk[:100_000], sp[:100_000]
+    sk, sp = sk[:25_000], sp[:25_000]
     args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 22, k=2, B=512) \
         if filtered else None
     jargs = JBloomArgs(variant=JBloomVariant.BLOCKED, m=1 << 22, k=2,

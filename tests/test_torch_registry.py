@@ -15,6 +15,7 @@ from hwbloomradixjoin_tpu.config import EngineConfig as JEngineConfig
 from hwbloomradixjoin_tpu.config import RadixConfig as JRadixConfig
 from hwbloomradixjoin_tpu.data import native
 from hwbloomradixjoin_tpu.models import run_join as jax_run_join
+from hwbloomradixjoin_tpu.ops import bitmap_join as jbitmap_join
 from hwbloomradixjoin_tpu.types import KeyStats as JKeyStats
 from hwbloomradixjoin_tpu.types import Relation as JRelation
 from hwbloomradixjoin_tpu_torch.config import (BloomArgs, EngineConfig,
@@ -35,9 +36,12 @@ def _workload(n_r=3000, n_s=20000, hi_mult=3, seed=0):
     return rk, rp, sk, sp
 
 
-def test_run_join_pro_cuda_radix_tier_matches_jax():
+def test_run_join_pro_cuda_radix_tier_matches_jax(monkeypatch):
     """run_join("PRO") plans the kernel tier and counts what the JAX
-    package's pallas_radix tier (interpret mode) and ref_join count."""
+    package's pallas_radix tier (interpret mode) and ref_join count.  The
+    JAX plan's phase timings, which no assertion reads, compile nothing."""
+    monkeypatch.setattr(jbitmap_join.RadixJoinPlan, "_time",
+                        lambda self, fn: 0.0)
     rk, rp, sk, sp = _workload()
     want = native.ref_join(rk, rp, sk, sp)[0]
     jst = JKeyStats(min_key=1, max_key=3000, is_unique=True)
@@ -263,6 +267,46 @@ def test_key8b_and_materialize_tiers_run(algo, cfg, kw):
     assert res.count() == len(want) == native.ref_join(rk, rp, sk, sp)[0]
     assert sorted(zip(res.r_payload.tolist(), res.s_payload.tolist())) \
         == want
+
+
+@pytest.mark.parametrize("algo,cfg,kw,tier", [
+    ("PRO", EngineConfig(allow_dense=False), {}, "cuda_radix"),
+    ("PRO", EngineConfig(), {"bloom": True}, "cuda_radix"),
+    ("PRHO", EngineConfig(), {"bloom": True}, "cuda_prho"),
+    ("PRH", EngineConfig(), {}, "cuda_prh"),
+    ("NPO", EngineConfig(), {"bloom": True}, "cuda_npo"),
+    ("PRO", EngineConfig(materialize=True), {}, "cuda_materialize"),
+    ("PRO", EngineConfig(), {"key8b": True}, "cuda_key8b"),
+    ("PRO", EngineConfig(radix=RadixConfig(use_kernels=False)), {}, "ht"),
+])
+def test_plan_join_is_the_plan_run_join_times(algo, cfg, kw, tier):
+    """plan_join, which profile.py traces, names run_join's tier and gives
+    the plan whose whole join counts what run_join reports, with its phases
+    and, on the radix tiers, its geometry; a plain-torch tier has no plan."""
+    from hwbloomradixjoin_tpu_torch.ops import bitmap_join
+
+    rk, rp, sk, sp = _workload(n_r=500, n_s=2000)
+    key8b = kw.get("key8b", False)
+    R = Relation.from_numpy(rk, rp, device="cpu", key8b=key8b,
+                            stats=KeyStats(1, 500, is_unique=True))
+    S = Relation.from_numpy(sk, sp, device="cpu", key8b=key8b)
+    bloom = BloomArgs(m=1 << 16) if kw.get("bloom") else None
+    plan, got = registry.plan_join(algo, R, S, cfg, bloom)
+    res, st, _ = run_join(algo, R, S, cfg, bloom)
+    assert got == st.tier == tier
+    assert res.count() == native.ref_join(rk, rp, sk, sp)[0]
+    if plan is None:
+        assert tier == "ht" and st.geometry is None
+        return
+    out = plan.full()
+    count = out[3] if tier == "cuda_materialize" else out.reshape(-1)[0]
+    assert int(count) == res.count()
+    assert list(plan.phase_fns()) == list(st.phases)
+    if tier in ("cuda_radix", "cuda_key8b"):
+        assert st.geometry == registry.radix_geometry(plan)
+        assert st.geometry[:3] == bitmap_join.plan_geometry(1, 500)
+    else:
+        assert st.geometry is None
 
 
 def test_dense_gate_needs_a_cuda_tensor():
