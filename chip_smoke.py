@@ -138,7 +138,18 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
 6b. the port's sweep driver (python -m
    hwbloomradixjoin_tpu_torch.measurements.run's quick sweep, in process):
    three CLI subprocesses on the card, each row parsed, with its tier and
-   an exact Results line.
+   an exact Results line;
+7. the tools, each through its main() in process as ``python -m
+   hwbloomradixjoin_tpu_torch.tools.<tool>`` runs it, each exiting 0:
+   validate_pro (PRO 1M x 8M and 16M x 128M, count |S|), build_check (2M
+   x 16M: kernel 3's bitmap equal to the twin's, both counts the host's),
+   part_bench --widths over 16M keys (kernel 1 at 1-13 bits, each width's
+   first chunk the twin's, and the fitted slope), microbench (the card's
+   primitives at N = 128M, NR = 16M, each checked once) and validate_key8b
+   at 2^20 x 2^24 (tier cuda_key8b, count |S|); then
+   measurements.analysis over phase 6b's rows: every row on this card, a
+   footprint class from its L2, and a bloom-superiority fraction that is
+   a number.
 
 Prints, in order: the card line, each phase's results and wall time, a
 {"kernels": [...]} JSON line, and as the last line {"ok": true, "device":
@@ -1830,7 +1841,7 @@ def run_entry_points() -> None:
     print(out.strip().replace("\n", " | "), flush=True)
 
 
-def run_quick_sweep() -> None:
+def run_quick_sweep() -> list:
     """Phase 6b: the port's sweep driver (measurements.run) runs its quick
     sweep through the CLI on the card, one subprocess a configuration:
     every row parsed by the port's parse_result, with a tier and an exact
@@ -1853,6 +1864,52 @@ def run_quick_sweep() -> None:
     if len(rows) != 3 or saved != rows:
         raise AssertionError(f"quick sweep: {len(rows)} rows, saved "
                              f"{len(saved)}")
+    return rows
+
+
+def run_tools(quick_rows) -> None:
+    """Phase 7: the port's tools on the card, each through its main() as
+    python -m runs it, each required to exit 0; then the analysis of phase
+    6b's rows, which must name this card, class each row against its L2
+    and give a bloom-superiority fraction that is a number."""
+    import math
+    import tempfile
+    from pathlib import Path
+    import torch
+    from hwbloomradixjoin_tpu_torch.measurements import analysis, run
+    from hwbloomradixjoin_tpu_torch.tools import (build_check, microbench,
+                                                  part_bench, validate_key8b,
+                                                  validate_pro)
+    from hwbloomradixjoin_tpu_torch.utils.roofline import card_line
+
+    for label, main, args in (
+            ("validate_pro", validate_pro.main, []),
+            ("build_check", build_check.main, []),
+            ("part_bench", part_bench.main, [str(R_SIZE), "--widths"]),
+            ("microbench", microbench.main, []),
+            ("validate_key8b", validate_key8b.main,
+             ["--r", str(A_MAT_R_SIZE), "--s", str(A_MAT_S_SIZE)])):
+        t0 = time.perf_counter()
+        rc = main(args)
+        torch.cuda.empty_cache()
+        if rc != 0:
+            raise AssertionError(f"{label} {' '.join(args)}: exit {rc}")
+        print(f"{label} {' '.join(args)}: exit 0, "
+              f"{time.perf_counter() - t0:.1f}s wall", flush=True)
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        run.save_data(quick_rows, "quick", tmp)
+        got = analysis.analyze(Path(tmp) / "quick.jsonl")
+        cross = analysis.cross_run_table(tmp)
+    sup = got["superiority"]
+    if sup is None or math.isnan(sup) or any(
+            r["device"] != card or r.get("footprint") not in ("S", "M", "L")
+            for r in got["rows"]) or cross[0]["device"] != card:
+        raise AssertionError(f"analysis of the quick sweep: fraction {sup}, "
+                             f"rows {got['rows']}")
+    print(f"analysis of the quick sweep on {card}: bloom-superiority "
+          f"fraction {sup:.3f}, footprints "
+          f"{[r['footprint'] for r in got['rows']]}", flush=True)
 
 
 def nbytes(*tensors) -> int:
@@ -2117,8 +2174,11 @@ def main():
     torch.cuda.empty_cache()
     run_entry_points()
     t0 = done("6 (entry points: cli, confrun, unittests)", t0)
-    run_quick_sweep()
-    done("6b (measurements.run quick sweep)", t0)
+    quick_rows = run_quick_sweep()
+    t0 = done("6b (measurements.run quick sweep)", t0)
+    run_tools(quick_rows)
+    done("7 (tools: validate_pro, build_check, part_bench, microbench, "
+         "validate_key8b; analysis)", t0)
     rows = [{"name": name, "route": route, "source": source,
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": err[name], "ms": times[name][0],

@@ -57,7 +57,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 
 SOURCE = r"""
 #include <cuda_runtime.h>
@@ -520,12 +519,11 @@ def main() -> None:
     from hwbloomradixjoin_tpu_torch.ops import bloom_pallas as BP
     from hwbloomradixjoin_tpu_torch.ops import radix as X
     from hwbloomradixjoin_tpu_torch.ops import run_split
+    from hwbloomradixjoin_tpu_torch.utils.roofline import card_line
     from hwbloomradixjoin_tpu_torch.utils.timing import time_usec
 
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     print(card, flush=True)
     libs = build_variants()
     sms = run_split.card_sms(dev)

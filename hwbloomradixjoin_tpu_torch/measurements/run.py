@@ -24,7 +24,8 @@ result).
 
 Every row holds its configuration, the parsed stdout, the tier (the CLI
 runs with --engine-sync-stats), the expected count where the workload
-fixes it and whether the count is exact.  Output: <out>/<name>.jsonl and
+fixes it, whether the count is exact and the device it ran on (the
+card's name and power limit, or cpu).  Output: <out>/<name>.jsonl and
 <name>.md, by default chiprun_out/sweeps/ under the repository root
 (git-ignored).  The card runs every join unless --engine-backend cpu is
 given; without a card the driver raises.  Sizes are overridden as in the
@@ -48,6 +49,7 @@ from pathlib import Path
 
 from hwbloomradixjoin_tpu_torch.measurements.config import (CLI_MODULE,
                                                             JoinConfig)
+from hwbloomradixjoin_tpu_torch.utils.roofline import card_line
 
 REPO = Path(__file__).resolve().parents[2]
 OUT_DIR = REPO / "chiprun_out" / "sweeps"
@@ -131,7 +133,14 @@ def run_one(cfg: JoinConfig, timeout: int = 1200,
     row["expected"] = expected_count(cfg)
     row["exact"] = None if row["expected"] is None \
         else row["results"] == row["expected"]
+    row["device"] = device_label(cfg.backend)
     return row
+
+
+def device_label(backend: str) -> str:
+    """What a row records as its device: cpu for the cpu backend, else the
+    card's name and power limit (utils/roofline.card_line)."""
+    return "cpu" if backend == "cpu" else card_line()
 
 
 def _cell(v) -> str:
@@ -142,20 +151,27 @@ def _cell(v) -> str:
     return "" if v is None else str(v)
 
 
+def markdown(rows: list[dict], cols=None) -> str:
+    """A markdown table of the rows' columns (default: every column seen,
+    in order of appearance)."""
+    if cols is None:
+        cols = list(dict.fromkeys(k for r in rows for k in r))
+    lines = ["| " + " | ".join(cols) + " |",
+             "|" + "---|" * len(cols)]
+    lines += ["| " + " | ".join(_cell(r.get(c)) for c in cols) + " |"
+              for r in rows]
+    return "\n".join(lines) + "\n"
+
+
 def save_data(rows: list[dict], name: str, out_dir=None) -> list[dict]:
     """Write the rows to <out_dir>/<name>.jsonl, one JSON object a row,
     and <name>.md, a markdown table of every column seen."""
     out = Path(out_dir or OUT_DIR)
     out.mkdir(parents=True, exist_ok=True)
-    cols = list(dict.fromkeys(k for r in rows for k in r))
     with open(out / f"{name}.jsonl", "w") as f:
         for r in rows:
             f.write(json.dumps(r) + "\n")
-    lines = ["| " + " | ".join(cols) + " |",
-             "|" + "---|" * len(cols)]
-    lines += ["| " + " | ".join(_cell(r.get(c)) for c in cols) + " |"
-              for r in rows]
-    (out / f"{name}.md").write_text("\n".join(lines) + "\n")
+    (out / f"{name}.md").write_text(markdown(rows))
     print(f"saved {len(rows)} rows -> {out / name}.jsonl/.md", flush=True)
     return rows
 
@@ -387,7 +403,7 @@ def _world_rows(name: str, nproc: int, cases: list, extra: list, backend,
                      **c["workload"], **c["kw"], "outputs": r["outputs"],
                      "expected": want, "exact": r["outputs"] == want,
                      "host-seconds": r["seconds"], "ranks-on": device,
-                     **more})
+                     "device": device_label(backend), **more})
     return save_data(rows, name, out_dir)
 
 

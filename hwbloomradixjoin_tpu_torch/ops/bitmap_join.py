@@ -42,10 +42,11 @@ from hwbloomradixjoin_tpu_torch.ops.radix import LANES
 
 CHUNK_ROWS = 4096          # partition chunk: 512K elements (2 MiB keys)
 
-# TPU cost model, measured on TPU v5e (JAX package, tools/part_bench.py,
-# round 5): one split-network bit costs ~0.185 ns/elem streamed; one resident
-# slice row adds ~0.004 ns/elem to the probe's select ladder.  Kept so the
-# port plans the JAX package's geometry; an H100 cost model is later work.
+# The JAX planner's cost model (its bitmap_join.py constants, unchanged):
+# a split bit's cost and a resident slice row's, a key.  Kept so both
+# packages choose one layout; they are not the card's.  The card's own cost
+# of a split bit comes from tools/part_bench.py --widths (PERF.md), and an
+# H100 cost model is later work.
 SPLIT_NS_PER_BIT = 0.185
 LADDER_NS_PER_ROW = 0.004
 SHIFT_MAX = 25                 # sl_rows cap 2^13 rows = 4 MiB slice

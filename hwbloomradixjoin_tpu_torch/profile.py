@@ -39,7 +39,6 @@ import argparse
 import json
 import os
 import re
-import subprocess
 
 JOINS = 5          # whole joins traced, back to back, after 3 warm ones
 
@@ -81,6 +80,7 @@ def profile_join(algo: str, r_size: int, s_size: int, selectivity: float,
     from hwbloomradixjoin_tpu_torch.data import generator as G
     from hwbloomradixjoin_tpu_torch.models import registry
     from hwbloomradixjoin_tpu_torch.types import Relation
+    from hwbloomradixjoin_tpu_torch.utils.roofline import card_line
 
     dev = torch.device("cuda")
     params = G.WorkloadParams(r_size=r_size, s_size=s_size, nthreads=8,
@@ -129,9 +129,7 @@ def profile_join(algo: str, r_size: int, s_size: int, selectivity: float,
     for a, b in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     trace = None
     if trace_dir is not None:
         os.makedirs(trace_dir, exist_ok=True)

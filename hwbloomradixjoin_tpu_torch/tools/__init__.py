@@ -1,2 +1,4 @@
-"""Validation runs of the port on the card (counterparts of the repository's
-tools/validate_fullrange.py and tools/validate_bloom_tpu.py)."""
+"""The port's chip tools (counterparts of the repository's tools/):
+validate_fullrange, validate_bloom (validate_bloom_tpu.py), validate_pro
+(validate_tpu.py), build_check (tpu_build_check.py), part_bench,
+microbench and validate_key8b."""

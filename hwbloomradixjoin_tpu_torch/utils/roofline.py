@@ -10,13 +10,16 @@ One chip model, keyed by ``torch.cuda.get_device_name()``: the H100 SXM's
 data-sheet figures, the ones ``chip_smoke.py`` bounds its kernels with
 (3.35 TB/s HBM; 67e12 float32 operations a second count an FMA as two on
 128 lanes an SM, int32 issues on 64 lanes an SM, one operation each:
-67e12 / 4).  A card with no model gets no bound, and so does a join that
-``join_costs`` does not describe (a tier outside MODELLED_TIERS, a filter).
+67e12 / 4; a 50 MiB L2, the card's ``L2_cache_size``, which
+``measurements/analysis.py`` classes build sides against).  A card with no model gets no bound, and so does a join
+that ``join_costs`` does not describe (a tier outside MODELLED_TIERS, a
+filter).  ``card_line`` names the card as results record it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,10 +28,12 @@ class ChipModel:
     hbm_bytes_per_s: float
     int32_ops_per_s: float
     hbm_gib: int
+    l2_bytes: int
 
 
 CHIPS = {
-    "NVIDIA H100 80GB HBM3": ChipModel("H100 SXM", 3.35e12, 67e12 / 4, 80),
+    "NVIDIA H100 80GB HBM3": ChipModel("H100 SXM", 3.35e12, 67e12 / 4, 80,
+                                       50 << 20),
 }
 
 # Integer operations a key of each operator (chip_smoke.py's OPS_PER_ELEM:
@@ -50,6 +55,22 @@ def chip_model(device_name: str | None = None) -> ChipModel | None:
             return None
         device_name = torch.cuda.get_device_name(0)
     return CHIPS.get(device_name)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them for card 0 (e.g.
+    "NVIDIA H100 80GB HBM3, 700.00 W")."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def card_name(label: str) -> str:
+    """The card's name in a card_line() label (the part before the power
+    limit)."""
+    return label.rsplit(", ", 1)[0]
 
 
 @dataclasses.dataclass

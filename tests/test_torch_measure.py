@@ -320,12 +320,20 @@ def test_survivor_theory_counts_accidental_members():
 
 def test_port_imports_no_jax_harness_or_tools():
     """No module of the port imports jax, the JAX package, or the
-    repository's measurements/ or tools/ (the port keeps its own copies)."""
+    repository's measurements/ or tools/ (the port keeps its own copies),
+    or pandas; the analysis, figures, rerun module and chip tools are
+    among the modules checked."""
     import ast
     import pathlib
     banned = {"jax", "jaxlib", "hwbloomradixjoin_tpu", "measurements",
               "tools", "pandas"}
     pkg = pathlib.Path(REPO, "hwbloomradixjoin_tpu_torch")
+    assert {f"{d}/{m}.py" for d, m in (
+        ("measurements", "analysis"), ("measurements", "plot_basics"),
+        ("measurements", "rerun"), ("tools", "validate_pro"),
+        ("tools", "build_check"), ("tools", "part_bench"),
+        ("tools", "microbench"), ("tools", "validate_key8b"))} <= {
+        p.relative_to(pkg).as_posix() for p in pkg.rglob("*.py")}
     found = []
     for path in sorted(pkg.rglob("*.py")):
         for node in ast.walk(ast.parse(path.read_text())):
