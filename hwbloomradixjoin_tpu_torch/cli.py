@@ -153,7 +153,7 @@ def _run_local(args, params, rk, rp, sk, sp, cfg, bloom_args, dev):
     with profiling.trace(args.engine_trace) if args.engine_trace \
             else contextlib.nullcontext():
         for _ in range(max(1, args.engine_repeats)):
-            with profiling.annotate(f"join:{args.algo}"):
+            with profiling.span("hbrj.run_join"):
                 result, stats, _ = run_join(
                     args.algo, R, S, cfg, bloom_args,
                     inner_repeats=max(1, args.engine_inner))
@@ -215,7 +215,6 @@ def _run_distributed(args, rk, rp, sk, sp, bloom_args, dev):
     after = None if bloom_args is None else int(s_after)
     stats = JoinStats(total_usec=total, probe_usec=total, result=cnt,
                       num_s_tuples=len(sk), s_after_filter=after,
-                      raw_total_usec=total,
                       tier=f"dist[{args.engine_devices}]/"
                            f"{args.engine_local_join}")
     return JoinResult(total_results=cnt, s_after_filter=after), stats

@@ -437,7 +437,8 @@ def device_ms(fn, calls: int = 10) -> float:
             fn()
         torch.cuda.synchronize()
     busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA)
+               if ev.device_type == DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False))
     return busy / calls / 1e3
 
 

@@ -21,6 +21,7 @@ import torch
 from hwbloomradixjoin_tpu_torch.config import BloomArgs
 from hwbloomradixjoin_tpu_torch.ops import bloom, xla_join
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY
+from hwbloomradixjoin_tpu_torch.utils.profiling import host_read, span
 
 
 def bloom_prune(r_key: torch.Tensor, s_key: torch.Tensor, args: BloomArgs):
@@ -47,7 +48,8 @@ class PrunePlan:
     bloom_pallas.BloomPrunePlan: prune() rebuilds the filter and writes S's
     keys where the filter contains them, PAD elsewhere, into the first
     |S| words of `out` IN PLACE (the rest stays PAD), returning (out,
-    survivor count).  phase_fns() gives bloom_build and bloom_probe."""
+    survivor count).  phase_fns() gives bloom_build and bloom_probe, each
+    run in its span (``hbrj.bloom_build``, ``hbrj.bloom_probe``)."""
 
     r_key: torch.Tensor
     s_key: torch.Tensor
@@ -57,14 +59,16 @@ class PrunePlan:
     _cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def build(self) -> torch.Tensor:
-        return bloom.build_bitmap(self.r_key, self.args)
+        with span("hbrj.bloom_build"):
+            return bloom.build_bitmap(self.r_key, self.args)
 
     def probe(self, words: torch.Tensor):
         keys = self.s_key.reshape(-1)
-        mask = bloom.probe_bitmap(words, keys, self.args)
-        torch.where(mask, keys, keys.new_tensor(PAD_KEY),
-                    out=self.out[:keys.numel()])
-        return self.out, mask.sum()
+        with span("hbrj.bloom_probe"):
+            mask = bloom.probe_bitmap(words, keys, self.args)
+            torch.where(mask, keys, keys.new_tensor(PAD_KEY),
+                        out=self.out[:keys.numel()])
+            return self.out, mask.sum()
 
     def prune(self):
         return self.probe(self.build())
@@ -81,9 +85,11 @@ def plan_prune(r_key: torch.Tensor, s_key: torch.Tensor, args: BloomArgs,
     """Plan the order-preserving prune on S's device, `out` padded with PAD
     to whole chunks of `chunk` keys, and run it once (s_after)."""
     n = s_key.numel()
-    out = torch.full((max(-(-n // chunk), 1) * chunk,), PAD_KEY,
-                     dtype=torch.int32, device=s_key.device)
+    with span("hbrj.plan.prune_out"):
+        out = torch.full((max(-(-n // chunk), 1) * chunk,), PAD_KEY,
+                         dtype=torch.int32, device=s_key.device)
     plan = PrunePlan(r_key=r_key.to(s_key.device), s_key=s_key, args=args,
                      out=out)
-    plan.s_after = int(plan.prune()[1])
+    with span("hbrj.plan.prune"):
+        plan.s_after = host_read(plan.prune()[1])
     return plan

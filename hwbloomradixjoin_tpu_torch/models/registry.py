@@ -45,6 +45,7 @@ from hwbloomradixjoin_tpu_torch.ops import (bitmap_join, bloom_pallas,
 from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
 from hwbloomradixjoin_tpu_torch.ops.radix import LANES
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY, JoinResult, Relation
+from hwbloomradixjoin_tpu_torch.utils.profiling import host_read, span
 from hwbloomradixjoin_tpu_torch.utils.timing import (JoinStats,
                                                     print_sync_stats,
                                                     time_usec)
@@ -85,7 +86,8 @@ def _key_range(R: Relation, max_span: int = HT_MAX_SLOTS,
     if R.stats is not None:
         lo, hi = int(R.stats.min_key), int(R.stats.max_key)
     else:
-        lo, hi = int(R.key.min()), int(R.key.max())
+        with span("hbrj.plan.key_range"):
+            lo, hi = host_read(R.key.min()), host_read(R.key.max())
     if hi - lo + 1 > max_span or lo < -(1 << 30):
         return None
     if require_nonneg and lo < 0:
@@ -175,7 +177,8 @@ class FilteredPlan:
 
     full() rebuilds the filter and prunes S into the join plan's S buffer
     (in place), then runs the join, so the timed join covers filter build,
-    prune, R build, partitions and probe.  s_after is the survivor count.
+    prune, R build, partitions and probe, all in one ``hbrj.full`` span.
+    s_after is the survivor count.
     """
 
     prune: object        # bloom_pallas.BloomPrunePlan | bloom_join.PrunePlan
@@ -195,14 +198,15 @@ class FilteredPlan:
         return self.prune.s_after
 
     def full(self) -> torch.Tensor:
-        self.prune.prune()
-        return self.join.full()
+        with span("hbrj.full"):
+            self.prune.prune()
+            return self.join.run()
 
     def full_count(self) -> int:
-        return int(self.full())
+        return host_read(self.full())
 
     def full_sums(self):
-        return tuple(self.full().tolist())
+        return tuple(host_read(self.full()).tolist())
 
     def phase_fns(self) -> dict:
         return {**self.prune.phase_fns(), **self.join.phase_fns()}
@@ -239,8 +243,11 @@ def plan_kernel_join(tier: str, R: Relation, S: Relation, cfg: EngineConfig,
                                        device=S.device, num_radix_bits=bits)
     else:
         # the plain prune's buffer is S chunk-padded: pad S's payloads alike
-        s_pay = S.payload if prune is None else radix_ops._chunk_pad(
-            S.payload, prune.out.numel(), S.device)
+        s_pay = S.payload
+        if prune is not None:
+            with span("hbrj.plan.pad_s"):
+                s_pay = radix_ops._chunk_pad(S.payload, prune.out.numel(),
+                                             S.device)
         plan_fn = prho_join.plan_materialize_join \
             if tier == "cuda_materialize" else prho_join.plan_prho_join
         plan = plan_fn(R.key, R.payload, s_key, s_pay, *key_range,
@@ -275,8 +282,10 @@ class DensePlan:
         prune = _bloom_prologue(R, S, bloom_args, allow_kernel=False)
         if prune is None:
             return cls(None, S.key, S.payload, *key_range)
-        return cls(prune, prune.out, radix_ops._chunk_pad(
-            S.payload, prune.out.numel(), S.device), *key_range)
+        with span("hbrj.plan.pad_s"):
+            s_pay = radix_ops._chunk_pad(S.payload, prune.out.numel(),
+                                         S.device)
+        return cls(prune, prune.out, s_pay, *key_range)
 
     @property
     def device(self) -> torch.device:
@@ -287,13 +296,15 @@ class DensePlan:
         return None if self.prune is None else self.prune.s_after
 
     def probe(self) -> torch.Tensor:
-        return dense_join.dense_count_join(self.s_key, self.s_pay, self.lo,
-                                           self.hi)
+        with span("hbrj.probe"):
+            return dense_join.dense_count_join(self.s_key, self.s_pay,
+                                               self.lo, self.hi)
 
     def full(self) -> torch.Tensor:
-        if self.prune is not None:
-            self.prune.prune()
-        return self.probe()
+        with span("hbrj.full"):
+            if self.prune is not None:
+                self.prune.prune()
+            return self.probe()
 
     def phase_fns(self) -> dict:
         fns = {} if self.prune is None else self.prune.phase_fns()
@@ -341,8 +352,13 @@ def plan_join(name: str, R: Relation, S: Relation,
     falls back to ht (cuda_prh to sortscan), materialize without its kernel
     tier stays materialize, and a KEY_8B join off the radix engine is
     key8b.  NPO ignores the filter, as the reference's B_NPO wrappers do
-    (main.c:296-312).
+    (main.c:296-312).  Planning runs in the span ``hbrj.plan_join``.
     """
+    with span("hbrj.plan_join"):
+        return _plan_join(name, R, S, cfg, bloom_args)
+
+
+def _plan_join(name, R, S, cfg, bloom_args):
     spec = ALGORITHMS[name]
     if spec.family == "npo":
         bloom_args = None
@@ -425,8 +441,8 @@ def _run_plan(plan, tier: str, S: Relation, inner_repeats: int,
                                        "build")),
         part_usec=part_usec, probe_usec=probe_usec, result=cnt,
         num_s_tuples=S.capacity, s_after_filter=s_after,
-        compile_usec=compile_usec, tier=tier, raw_total_usec=total_usec,
-        floor_usec=0.0, phases=phases, geometry=geometry)
+        compile_usec=compile_usec, tier=tier, phases=phases,
+        geometry=geometry)
     return (JoinResult(total_results=cnt, s_after_filter=s_after, **pairs),
             stats, sums)
 
@@ -463,7 +479,7 @@ def _run_materialize(R: Relation, S: Relation, bloom_args,
     stats = JoinStats(
         total_usec=total_usec, probe_usec=total_usec, result=cnt,
         num_s_tuples=S.capacity, s_after_filter=s_after, tier="materialize",
-        raw_total_usec=total_usec, phases={"probe": total_usec})
+        phases={"probe": total_usec})
     return (JoinResult(total_results=cnt, s_after_filter=s_after,
                        r_payload=out_r[:cnt], s_payload=out_s[:cnt]),
             stats, (0, 0))
@@ -514,7 +530,7 @@ def _run_portable(tier: str, R: Relation, S: Relation, bloom_args,
         total_usec=total_usec, build_usec=phases.get("build", 0.0),
         part_usec=phases.get("part", 0.0), probe_usec=phases["probe"],
         result=cnt, num_s_tuples=S.capacity, s_after_filter=s_after,
-        tier=tier, raw_total_usec=total_usec, phases=phases)
+        tier=tier, phases=phases)
     return (JoinResult(total_results=cnt, s_after_filter=s_after), stats,
             (int(sr), int(ss)))
 
@@ -523,8 +539,9 @@ def high_words_zero(R: Relation, S: Relation) -> bool:
     """Whether every high key word of R and S is zero: a reduction of each
     on the device and one host read, at plan time (JAX
     registry.py:547-550)."""
-    return not bool(torch.logical_or((R.key_hi != 0).any(),
-                                     (S.key_hi != 0).any()))
+    with span("hbrj.plan.high_words"):
+        return not host_read(torch.logical_or((R.key_hi != 0).any(),
+                                              (S.key_hi != 0).any()))
 
 
 def _run_wide(tier: str, R: Relation, S: Relation, bloom_args,
@@ -594,7 +611,7 @@ def _run_wide(tier: str, R: Relation, S: Relation, bloom_args,
     stats = JoinStats(
         total_usec=total_usec, probe_usec=total_usec, result=cnt,
         num_s_tuples=S.capacity, s_after_filter=s_after, tier=tier,
-        raw_total_usec=total_usec, phases={"probe": total_usec})
+        phases={"probe": total_usec})
     return (JoinResult(total_results=cnt, s_after_filter=s_after, **pairs),
             stats, sums)
 

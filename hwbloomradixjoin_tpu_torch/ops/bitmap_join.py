@@ -39,6 +39,7 @@ from hwbloomradixjoin_tpu_torch.kernels import _build
 from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
 from hwbloomradixjoin_tpu_torch.ops import run_split
 from hwbloomradixjoin_tpu_torch.ops.radix import LANES
+from hwbloomradixjoin_tpu_torch.utils.profiling import host_read, span
 
 CHUNK_ROWS = 4096          # partition chunk: 512K elements (2 MiB keys)
 
@@ -272,7 +273,8 @@ def plan_bitmap_build(r_key, lo: int, hi: int, part_bits: int, shift: int,
     rgeom = radix_ops.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits,
                                 lo=lo, hi=hi, shift=shift,
                                 pad_cat=not radix_ops.pad_cat_safe(lo, hi))
-    return radix_ops._chunk_pad(r_key, chunk_rows * LANES, device), rgeom
+    with span("hbrj.plan.pad_r"):
+        return radix_ops._chunk_pad(r_key, chunk_rows * LANES, device), rgeom
 
 
 @dataclasses.dataclass
@@ -283,7 +285,9 @@ class RadixJoinPlan:
     partition, probe) and returns the count as a device tensor without
     synchronising; full_count() reads it back.  phase_fns() gives one
     callable per phase, each re-running that phase on the inputs planning
-    produced, for phase timing.
+    produced, for phase timing.  Each phase runs in its span
+    (``hbrj.r_partition``, ...), the join in ``hbrj.full``; run() is the
+    join without it.
     """
 
     rk_in: torch.Tensor
@@ -302,39 +306,48 @@ class RadixJoinPlan:
         return self.sk_in.device
 
     def r_partition(self):
-        return radix_ops.partition_pass(self.rk_in, self.rgeom)
+        with span("hbrj.r_partition"):
+            return radix_ops.partition_pass(self.rk_in, self.rgeom)
 
     def build(self, r_part: torch.Tensor,
               starts: Optional[torch.Tensor] = None) -> torch.Tensor:
         g = self.rgeom
-        return bitmap_build(r_part, self.lo, self.hi, g.part_bits, g.shift,
-                            self.r_sl_rows, starts)
+        with span("hbrj.build"):
+            return bitmap_build(r_part, self.lo, self.hi, g.part_bits,
+                                g.shift, self.r_sl_rows, starts)
 
     def s_effective(self) -> torch.Tensor:
         """S as the partition sees it: compacted survivors, or S itself."""
         if self.cap_rows is None:
             return self.sk_in
         chunk_rows = self.sgeom.chunk_rows
-        ck, _ = radix_ops.compact_pass(self.sk_in, self.lo, self.hi,
-                                       chunk_rows, cap_rows=self.cap_rows)
-        return radix_ops._chunk_pad(ck.view(-1), chunk_rows * LANES,
-                                    ck.device)
+        with span("hbrj.compact"):
+            ck, _ = radix_ops.compact_pass(self.sk_in, self.lo, self.hi,
+                                           chunk_rows, cap_rows=self.cap_rows)
+            return radix_ops._chunk_pad(ck.view(-1), chunk_rows * LANES,
+                                        ck.device)
 
     def s_partition(self, s_eff: torch.Tensor):
-        return radix_ops.partition_pass(s_eff, self.sgeom)
+        with span("hbrj.s_partition"):
+            return radix_ops.partition_pass(s_eff, self.sgeom)
 
     def probe(self, bitmap: torch.Tensor, s_part: torch.Tensor,
               starts: torch.Tensor):
         g = self.sgeom
-        return bitmap_probe_count(bitmap, s_part, self.lo, g.shift,
-                                  g.part_bits, self.sl_rows, starts)
+        with span("hbrj.probe"):
+            return bitmap_probe_count(bitmap, s_part, self.lo, g.shift,
+                                      g.part_bits, self.sl_rows, starts)
 
-    def full(self) -> torch.Tensor:
+    def run(self) -> torch.Tensor:
         bitmap = self.build(*self.r_partition())
         return self.probe(bitmap, *self.s_partition(self.s_effective()))
 
+    def full(self) -> torch.Tensor:
+        with span("hbrj.full"):
+            return self.run()
+
     def full_count(self) -> int:
-        return int(self.full())
+        return host_read(self.full())
 
     def _intermediates(self) -> dict:
         if not self._cache:
@@ -441,23 +454,27 @@ def plan_radix_join(r_key, s_key, lo: int, hi: int, device="cuda",
     r_key/s_key: numpy arrays (padded on the host) or tensors.  device: where
     the join runs, the card unless the caller asks for the CPU.
     survivor_frac: fraction of S inside [lo, hi]; None measures it (one host
-    sync).  Under half triggers survivor compaction when the compacted stream
-    is at most 60% of S; the per-chunk cap comes from one plan-time
-    compaction's live counts (a second host sync).  As in the JAX package.
+    sync, span ``hbrj.plan.survivor_count``).  Under half triggers survivor
+    compaction when the compacted stream is at most 60% of S; the per-chunk
+    cap comes from one plan-time compaction's live counts (a second host
+    sync, ``hbrj.plan.compact_cap``).  As in the JAX package.
     """
     device = torch.device(device)
     chunk = chunk_rows * LANES
-    sk_in = radix_ops._chunk_pad(s_key, chunk, device)
+    with span("hbrj.plan.pad_s"):
+        sk_in = radix_ops._chunk_pad(s_key, chunk, device)
     if survivor_frac is None:
-        live = ((sk_in >= lo) & (sk_in <= hi)).sum()
-        survivor_frac = int(live) / sk_in.numel()
+        with span("hbrj.plan.survivor_count"):
+            live = ((sk_in >= lo) & (sk_in <= hi)).sum()
+            survivor_frac = host_read(live) / sk_in.numel()
 
     cap_rows = None
     nchunks0 = sk_in.numel() // chunk
     if survivor_frac < 0.5 and nchunks0 > 0:
-        _, counts0 = radix_ops.compact_pass(sk_in, lo, hi, chunk_rows,
-                                            cap_rows=8)
-        max_live = int(counts0[::8, 0].max())
+        with span("hbrj.plan.compact_cap"):
+            _, counts0 = radix_ops.compact_pass(sk_in, lo, hi, chunk_rows,
+                                                cap_rows=8)
+            max_live = host_read(counts0[::8, 0].max())
         cap = min(max((-(-max_live // LANES) + 7) & ~7, 8), chunk_rows)
         if nchunks0 * cap <= (sk_in.numel() // LANES) * 6 // 10:
             cap_rows = cap

@@ -87,12 +87,14 @@ def build_bitmap(keys: torch.Tensor, args: BloomArgs) -> torch.Tensor:
     """The filter of `keys` as (m/32,) int32 words, on keys' device.
 
     torch has no OR scatter: each probe position sets a bool (idempotent,
-    so exact for any multiset) and the bits are packed 32 to a word.
+    so exact for any multiset) and the bits are packed 32 to a word.  The
+    fill takes its value as an argument: an assigned True is a host tensor
+    copied to the device, which waits for the device's queue.
     """
     bits = torch.zeros(args.m, dtype=torch.bool, device=keys.device)
     for _, slab in _slabs(keys):
         for pos in global_positions(slab, args):
-            bits[pos] = True
+            bits.index_fill_(0, pos, True)
     return pack_bits(bits)
 
 

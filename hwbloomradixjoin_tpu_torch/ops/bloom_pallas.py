@@ -49,6 +49,7 @@ from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
 from hwbloomradixjoin_tpu_torch.ops import run_split
 from hwbloomradixjoin_tpu_torch.ops.radix import LANES
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY
+from hwbloomradixjoin_tpu_torch.utils.profiling import host_read, span
 
 SLICE_BITS = 17            # 2^17-bit slices (32 rows of 128 words)
 MAX_PART_BITS = 10         # one hash pass up to this depth
@@ -200,7 +201,7 @@ class BloomPrunePlan:
     returning (out, survivor count); its layout is the same on every call.
     s_after is the survivor count of the planning run.  phase_fns() gives
     bloom_build, bloom_partition and bloom_probe, each re-run on the planned
-    inputs.
+    inputs; each phase runs in its span (``hbrj.bloom_build``, ...).
     """
 
     r_key: torch.Tensor
@@ -213,22 +214,25 @@ class BloomPrunePlan:
     _cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def build(self) -> torch.Tensor:
-        return bloom.build_bitmap(self.r_key, self.args)
+        with span("hbrj.bloom_build"):
+            return bloom.build_bitmap(self.r_key, self.args)
 
     def partition(self):
         """(keys, starts) of hash-partitioned S: pass 1's, or pass 2's
         regions and starts2."""
-        s1 = radix_ops.partition_pass(self.sk_in, self.pgeom)
-        if self.pass2 is None:
-            return s1
-        return multipass.pass2_partition(*s1, self.pass2)
+        with span("hbrj.bloom_partition"):
+            s1 = radix_ops.partition_pass(self.sk_in, self.pgeom)
+            if self.pass2 is None:
+                return s1
+            return multipass.pass2_partition(*s1, self.pass2)
 
     def probe(self, words: torch.Tensor, s_part):
         b2 = None if self.pass2 is None else self.pass2.b2
-        return bloom_probe_prune(words, s_part[0], self.args, out=self.out,
-                                 starts=s_part[1],
-                                 part_bits=self.pgeom.part_bits + (b2 or 0),
-                                 seg_bits=b2)
+        with span("hbrj.bloom_probe"):
+            return bloom_probe_prune(words, s_part[0], self.args,
+                                     out=self.out, starts=s_part[1],
+                                     part_bits=self.pgeom.part_bits
+                                     + (b2 or 0), seg_bits=b2)
 
     def prune(self):
         return self.probe(self.build(), self.partition())
@@ -254,11 +258,13 @@ def _partition_bits(args: BloomArgs):
 
 
 def _plan(r_key, sk_in, args, pgeom, pass2, n_out, chunk) -> BloomPrunePlan:
-    out = sk_in.new_full((-(-n_out // chunk) * chunk,), PAD_KEY)
+    with span("hbrj.plan.prune_out"):
+        out = sk_in.new_full((-(-n_out // chunk) * chunk,), PAD_KEY)
     r = r_key if isinstance(r_key, torch.Tensor) else torch.from_numpy(r_key)
     plan = BloomPrunePlan(r_key=r.to(sk_in.device), sk_in=sk_in, args=args,
                           pgeom=pgeom, pass2=pass2, out=out)
-    plan.s_after = int(plan.prune()[1])
+    with span("hbrj.plan.prune"):
+        plan.s_after = host_read(plan.prune()[1])
     return plan
 
 
@@ -279,7 +285,8 @@ def plan_bloom_prune(r_key, s_key, args: BloomArgs, device="cuda",
                                       hash_bits, device=device,
                                       chunk_rows=chunk_rows)
     chunk = chunk_rows * LANES
-    sk_in = radix_ops._chunk_pad(s_key, chunk, torch.device(device))
+    with span("hbrj.plan.pad_s"):
+        sk_in = radix_ops._chunk_pad(s_key, chunk, torch.device(device))
     pgeom = radix_ops.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits,
                                 hash_seed=args.seed, hash_bits=hash_bits)
     return _plan(r_key, sk_in, args, pgeom, None, sk_in.numel(), chunk)
@@ -300,12 +307,14 @@ def plan_bloom_prune_2pass(r_key, s_key, args: BloomArgs, part_bits: int,
     b1 = min(part_bits - 1, MAX_PART_BITS)
     b2 = part_bits - b1
     chunk = chunk_rows * LANES
-    sk_in = radix_ops._chunk_pad(s_key, chunk, torch.device(device))
+    with span("hbrj.plan.pad_s"):
+        sk_in = radix_ops._chunk_pad(s_key, chunk, torch.device(device))
     p1geom = radix_ops.RadixGeom(chunk_rows=chunk_rows, part_bits=b1,
                                  hash_seed=args.seed, hash_bits=hash_bits)
-    s1, starts1 = radix_ops.partition_pass(sk_in, p1geom)
-    p2 = multipass.plan_pass2(s1, starts1, b1, b2, chunk_rows, None,
-                              hash_seed=args.seed, hash_bits=hash_bits)
-    del s1, starts1
+    with span("hbrj.plan.pass2_geometry"):
+        s1, starts1 = radix_ops.partition_pass(sk_in, p1geom)
+        p2 = multipass.plan_pass2(s1, starts1, b1, b2, chunk_rows, None,
+                                  hash_seed=args.seed, hash_bits=hash_bits)
+        del s1, starts1
     n_out = sk_in.numel() if p2 is None else (1 << b1) * p2.cap_rows * LANES
     return _plan(r_key, sk_in, args, p1geom, p2, n_out, chunk)

@@ -33,6 +33,19 @@ def _crc32c_table(bits: int) -> np.ndarray:
 
 
 CRC32C_TABLE = _crc32c_table(16)      # 2 lookups a key; 512 KiB
+_PINNED: list = []                    # CRC32C_TABLE in pinned host memory
+
+
+def _crc_table(device: torch.device) -> torch.Tensor:
+    """CRC32C_TABLE on `device`.  A card takes it from one pinned host
+    copy without waiting: a copy from pageable memory waits for the
+    device's queue."""
+    host = torch.from_numpy(CRC32C_TABLE)
+    if device.type != "cuda":
+        return host.to(device)
+    if not _PINNED:
+        _PINNED.append(host.pin_memory())
+    return _PINNED[0].to(device, non_blocking=True)
 
 
 def _key_bytes(key, key_hi=None):
@@ -58,7 +71,7 @@ def hash_crc(seed, key, key_hi=None):
     """
     del key_hi
     x = U.u32(key) ^ U.u32(seed)
-    table = torch.from_numpy(CRC32C_TABLE).to(x.device)
+    table = _crc_table(x.device)
     for _ in range(2):
         x = (x >> 16) ^ table[x & 0xFFFF]
     return x

@@ -36,6 +36,7 @@ from hwbloomradixjoin_tpu_torch.ops import bitmap_join, hashes
 from hwbloomradixjoin_tpu_torch.ops import radix as radix_ops
 from hwbloomradixjoin_tpu_torch.ops.radix import LANES
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY
+from hwbloomradixjoin_tpu_torch.utils.profiling import host_read, span
 
 # TPU limits kept on purpose for range-mode plans, so both packages choose
 # the same two-pass join (ROADMAP §3): pass 2 staged every chunk's window of a
@@ -188,7 +189,7 @@ def plan_pass2(s_part1: torch.Tensor, starts1: torch.Tensor, b1: int,
     """
     F1, F2 = 1 << b1, 1 << b2
     nchunks = s_part1.numel() // (chunk_rows * LANES)
-    st = starts1.reshape(nchunks, -1)[:, :F1 + 1].long().cpu()
+    st = host_read(starts1.reshape(nchunks, -1)[:, :F1 + 1].long())
     runs1 = st[:, 1:] - st[:, :-1]
     buckets = runs1.sum(0)
     c1_rows = (-(-int(runs1.max()) // LANES) + 1 + 7) & ~7
@@ -217,7 +218,7 @@ class TwoPassPlan:
 
     full() runs the whole join and returns the count as a device tensor
     without synchronising; full_count() reads it back; phase_fns() gives
-    one callable per phase, as RadixJoinPlan's.
+    one callable per phase; spans and run() as RadixJoinPlan's.
     """
 
     rk_in: torch.Tensor
@@ -237,32 +238,41 @@ class TwoPassPlan:
         return self.sk_in.device
 
     def r_partition(self):
-        return radix_ops.partition_pass(self.rk_in, self.rgeom)
+        with span("hbrj.r_partition"):
+            return radix_ops.partition_pass(self.rk_in, self.rgeom)
 
     def build(self, r_part: torch.Tensor,
               starts: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return bitmap_join.bitmap_build(r_part, self.lo, self.hi,
-                                        self.part_bits, self.shift,
-                                        self.sl_rows, starts)
+        with span("hbrj.build"):
+            return bitmap_join.bitmap_build(r_part, self.lo, self.hi,
+                                            self.part_bits, self.shift,
+                                            self.sl_rows, starts)
 
     def s_partition(self):
-        return radix_ops.partition_pass(self.sk_in, self.p1geom)
+        with span("hbrj.s_partition"):
+            return radix_ops.partition_pass(self.sk_in, self.p1geom)
 
     def s_pass2(self, s1):
         """(regions, starts2) of S's pass 2."""
-        return pass2_partition(s1[0], s1[1], self.pass2)
+        with span("hbrj.s_pass2"):
+            return pass2_partition(s1[0], s1[1], self.pass2)
 
     def probe(self, bitmap: torch.Tensor, s2):
-        return bitmap_join.bitmap_probe_count(
-            bitmap, s2[0], self.lo, self.shift, self.part_bits, self.sl_rows,
-            s2[1], seg_bits=self.pass2.b2)
+        with span("hbrj.probe"):
+            return bitmap_join.bitmap_probe_count(
+                bitmap, s2[0], self.lo, self.shift, self.part_bits,
+                self.sl_rows, s2[1], seg_bits=self.pass2.b2)
 
-    def full(self) -> torch.Tensor:
+    def run(self) -> torch.Tensor:
         bitmap = self.build(*self.r_partition())
         return self.probe(bitmap, self.s_pass2(self.s_partition()))
 
+    def full(self) -> torch.Tensor:
+        with span("hbrj.full"):
+            return self.run()
+
     def full_count(self) -> int:
-        return int(self.full())
+        return host_read(self.full())
 
     def _intermediates(self) -> dict:
         if not self._cache:
@@ -302,10 +312,12 @@ def plan_radix_join_2pass(r_key, s_key, lo: int, hi: int, device="cuda",
     b1, b2 = RadixConfig(passes=2).split_bits(part_bits)
     p1geom = radix_ops.RadixGeom(chunk_rows=chunk_rows, part_bits=b1, lo=lo,
                                  hi=hi, shift=shift + b2)
-    sk_in = radix_ops._chunk_pad(s_key, chunk_rows * LANES, device)
-    s1, starts1 = radix_ops.partition_pass(sk_in, p1geom)
-    p2 = plan_pass2(s1, starts1, b1, b2, chunk_rows, MAX_RANGE_CHUNKS,
-                    lo=lo, hi=hi, shift1=shift + b2, shift2=shift)
+    with span("hbrj.plan.pad_s"):
+        sk_in = radix_ops._chunk_pad(s_key, chunk_rows * LANES, device)
+    with span("hbrj.plan.pass2_geometry"):
+        s1, starts1 = radix_ops.partition_pass(sk_in, p1geom)
+        p2 = plan_pass2(s1, starts1, b1, b2, chunk_rows, MAX_RANGE_CHUNKS,
+                        lo=lo, hi=hi, shift1=shift + b2, shift2=shift)
     if p2 is None:
         return None
     rk_in, rgeom = bitmap_join.plan_bitmap_build(r_key, lo, hi, part_bits,

@@ -39,6 +39,7 @@ from hwbloomradixjoin_tpu_torch.ops import run_split
 from hwbloomradixjoin_tpu_torch.ops.bitmap_join import CHUNK_ROWS
 from hwbloomradixjoin_tpu_torch.ops.radix import LANES
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY
+from hwbloomradixjoin_tpu_torch.utils.profiling import host_read, span
 
 MAX_SLICE_ROWS = 128       # slice covers 2^14 keys = 64 KiB of counts
 MASK32 = 0xFFFFFFFF
@@ -290,8 +291,9 @@ def plan_tables_build(r_key, r_pay, lo: int, hi: int, part_bits: int,
     geom = radix_ops.RadixGeom(chunk_rows=chunk_rows, part_bits=part_bits,
                                lo=lo, hi=hi, shift=shift)
     chunk = chunk_rows * LANES
-    return (radix_ops._chunk_pad(r_key, chunk, device),
-            radix_ops._chunk_pad(r_pay, chunk, device), geom)
+    with span("hbrj.plan.pad_r"):
+        return (radix_ops._chunk_pad(r_key, chunk, device),
+                radix_ops._chunk_pad(r_pay, chunk, device), geom)
 
 
 @dataclasses.dataclass
@@ -303,7 +305,8 @@ class PrhoPlan:
     without synchronising; full_sums() reads it back as (int, uint32,
     uint32).  sp_in is None for PRH, whose S side moves keys only and whose
     s_sum is 0.  phase_fns() gives one callable per phase, each re-running
-    that phase on the inputs planning produced.
+    that phase on the inputs planning produced.  Spans and run() as
+    bitmap_join.RadixJoinPlan's.
     """
 
     rk_in: torch.Tensor
@@ -321,32 +324,44 @@ class PrhoPlan:
         return self.sk_in.device
 
     def r_partition(self):
-        return radix_ops.partition_pass_kv(self.rk_in, self.rp_in, self.geom)
+        with span("hbrj.r_partition"):
+            return radix_ops.partition_pass_kv(self.rk_in, self.rp_in,
+                                               self.geom)
 
     def build(self, r_part):
         g = self.geom
-        return table_build(r_part[0], r_part[1], self.lo, self.hi,
-                           g.part_bits, g.shift, self.slice_rows, r_part[2])
+        with span("hbrj.build"):
+            return table_build(r_part[0], r_part[1], self.lo, self.hi,
+                               g.part_bits, g.shift, self.slice_rows,
+                               r_part[2])
 
     def s_partition(self):
         """(keys, payloads or None, starts) of partitioned S."""
-        if self.sp_in is None:
-            keys, starts = radix_ops.partition_pass(self.sk_in, self.geom)
-            return keys, None, starts
-        return radix_ops.partition_pass_kv(self.sk_in, self.sp_in, self.geom)
+        with span("hbrj.s_partition"):
+            if self.sp_in is None:
+                keys, starts = radix_ops.partition_pass(self.sk_in,
+                                                        self.geom)
+                return keys, None, starts
+            return radix_ops.partition_pass_kv(self.sk_in, self.sp_in,
+                                               self.geom)
 
     def probe(self, tables, s_part) -> torch.Tensor:
         g = self.geom
-        return probe_count_sums(tables[0], tables[1], s_part[0], s_part[1],
-                                self.lo, g.shift, g.part_bits,
-                                self.slice_rows, s_part[2])
+        with span("hbrj.probe"):
+            return probe_count_sums(tables[0], tables[1], s_part[0],
+                                    s_part[1], self.lo, g.shift, g.part_bits,
+                                    self.slice_rows, s_part[2])
 
-    def full(self) -> torch.Tensor:
+    def run(self) -> torch.Tensor:
         tables = self.build(self.r_partition())
         return self.probe(tables, self.s_partition())
 
+    def full(self) -> torch.Tensor:
+        with span("hbrj.full"):
+            return self.run()
+
     def full_sums(self):
-        return tuple(self.full().tolist())
+        return tuple(host_read(self.full()).tolist())
 
     def _intermediates(self) -> dict:
         if not self._cache:
@@ -376,9 +391,10 @@ class MaterializePlan(PrhoPlan):
 
     def probe(self, tables, s_part):
         g = self.geom
-        return materialize_pairs(tables[0], tables[1], s_part[0], s_part[1],
-                                 self.lo, g.shift, g.part_bits,
-                                 self.slice_rows, s_part[2])
+        with span("hbrj.materialize"):
+            return materialize_pairs(tables[0], tables[1], s_part[0],
+                                     s_part[1], self.lo, g.shift,
+                                     g.part_bits, self.slice_rows, s_part[2])
 
     def phase_fns(self) -> dict:
         fns = super().phase_fns()
@@ -398,17 +414,18 @@ def _plan(r_key, r_pay, s_key, s_pay, lo: int, hi: int, device, chunk_rows,
     rk_in, rp_in, geom = plan_tables_build(r_key, r_pay, lo, hi, part_bits,
                                            shift, chunk_rows, device)
     chunk = chunk_rows * LANES
-    plan = plan_cls(
-        rk_in=rk_in, rp_in=rp_in,
-        sk_in=radix_ops._chunk_pad(s_key, chunk, device),
-        sp_in=None if s_pay is None
-        else radix_ops._chunk_pad(s_pay, chunk, device),
-        lo=lo, hi=hi, geom=geom, slice_rows=slice_rows)
+    with span("hbrj.plan.pad_s"):
+        sk_in = radix_ops._chunk_pad(s_key, chunk, device)
+        sp_in = None if s_pay is None \
+            else radix_ops._chunk_pad(s_pay, chunk, device)
+    plan = plan_cls(rk_in=rk_in, rp_in=rp_in, sk_in=sk_in, sp_in=sp_in,
+                    lo=lo, hi=hi, geom=geom, slice_rows=slice_rows)
     # the JAX package's guard on the largest multiplicity (one plan-time
     # sync); the tables built here stay in the plan for phase timing
-    cnt_tbl = plan._intermediates()["tables"][0]
-    if int(cnt_tbl.max()) > max_count:
-        return None
+    with span("hbrj.plan.multiplicity_guard"):
+        cnt_tbl = plan._intermediates()["tables"][0]
+        if host_read(cnt_tbl.max()) > max_count:
+            return None
     return plan
 
 

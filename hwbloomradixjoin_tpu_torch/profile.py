@@ -117,7 +117,9 @@ def profile_join(algo: str, r_size: int, s_size: int, selectivity: float,
         torch.cuda.synchronize()
     kernels, spans = {}, []
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+        # the program's spans also mark the device timeline: no kernels
+        if ev.device_type != DeviceType.CUDA \
+                or getattr(ev, "is_user_annotation", False):
             continue
         name = _short(ev.name)
         kernels[name] = kernels.get(name, 0.0) + ev.time_range.elapsed_us()

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from contextlib import contextmanager
 from typing import Callable
 
 import torch
@@ -29,10 +28,6 @@ class JoinStats:
     s_after_filter: int | None = None
     compile_usec: float = 0.0      # planning time, outside the timed join
     tier: str = ""                 # execution tier chosen by the planner
-    # the JAX package subtracted a transport floor here; the port times on
-    # the card itself, so raw_total_usec == total_usec and floor_usec == 0
-    raw_total_usec: float = 0.0
-    floor_usec: float = 0.0
     # every timed phase in join order (usec), e.g. r_partition, build,
     # compact, s_partition, probe for the radix tier
     phases: dict = dataclasses.field(default_factory=dict)
@@ -63,35 +58,6 @@ def _elapsed_usec(fn: Callable[[], object], device: torch.device,
     for _ in range(calls):
         fn()
     return (time.perf_counter() - t0) * 1e6 / calls
-
-
-class PhaseTimer:
-    """Accumulated time of named phases, in usec (JAX utils/timing.py:47).
-
-    On the card each phase is timed by CUDA events recorded on the current
-    stream around it, and the end event is waited for as the phase closes;
-    on the CPU by the host clock.
-    """
-
-    def __init__(self, device="cuda"):
-        self.device = torch.device(device)
-        self.phases: dict[str, float] = {}
-
-    @contextmanager
-    def phase(self, name: str):
-        if self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-            end.synchronize()
-            usec = start.elapsed_time(end) * 1e3
-        else:
-            t0 = time.perf_counter()
-            yield
-            usec = (time.perf_counter() - t0) * 1e6
-        self.phases[name] = self.phases.get(name, 0.0) + usec
 
 
 _REPEATS = 3       # measurements; the best one is reported

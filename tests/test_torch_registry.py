@@ -61,8 +61,7 @@ def test_run_join_pro_cuda_radix_tier_matches_jax(monkeypatch):
     assert list(st.phases) == ["r_partition", "build", "compact",
                                "s_partition", "probe"]
     assert all(v > 0 for v in st.phases.values())
-    assert st.total_usec > 0 and st.raw_total_usec == st.total_usec
-    assert st.floor_usec == 0.0
+    assert st.total_usec > 0
     assert st.build_usec == st.phases["r_partition"] + st.phases["build"]
 
 
@@ -186,7 +185,7 @@ def test_count_table_tiers_match_jax(algo, tier, jtier):
     else:
         assert (st.part_usec, st.probe_usec) == (ph["s_partition"],
                                                  ph["probe"])
-    assert st.total_usec > 0 and st.raw_total_usec == st.total_usec
+    assert st.total_usec > 0
 
 
 @pytest.mark.parametrize("algo,tier", [("PRHO", "ht"), ("PRH", "sortscan"),
