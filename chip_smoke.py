@@ -9,7 +9,7 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
 2. build: compiles the kernels (csrc/*.cu, one nvcc per source, in
    parallel) into the package's git-ignored build directory and prints the
    build time;
-3. kernel vs twin: each of the fourteen kernel rows against its plain
+3. kernel vs twin: each of the fifteen kernel rows against its plain
    PyTorch twin on the card on 4 chunks of CHUNK_ROWS=4096 rows: the PRO
    kernels at plan_geometry(1, 16_000_000), the count-table kernels at
    workload B's count geometry plan_geometry_counts(1, 128_000_000) =
@@ -69,7 +69,11 @@ from the repository root.  Every failure raises (non-zero exit).  Phases:
    reference's headline bloom run, BASELINE.md:43): the two-pass prune
    (10 + 3 bits), the same checks (the build at 8 bits of 64 KiB slices
    over 128M R keys), and the survivor share beside the reference's
-   12.14 %;
+   12.14 %; then the filter build's kernel row at this shape (128M R
+   keys, m = 2^30, B = 512, k = 1): its ms and its twin's, both bounds
+   (streaming the keys and the words, and a sector read and written a
+   key), the words equal to the twin's and to the reference filter's
+   (native.ref_bloom) bit for bit;
    every run_join above uses allow_dense=False;
 4g. run_join("PRO") with EngineConfig() over 4's relations (the generator's
    dense PK) at q = 1 and q = 0.01: the dense tier, the exact count and the
@@ -210,6 +214,9 @@ KERNELS = {   # wrapper name -> (route, source, TPU kernel it replaces)
                     "hwbloomradixjoin_tpu/ops/prho_join.py:647"),
     "gathered_probe": ("cuda", SRC + "gathered_probe.cu",
                        "hwbloomradixjoin_tpu/ops/radix.py:577"),
+    "bloom_build": ("cuda", SRC + "bloom.cu",
+                    "no Pallas kernel: the XLA build_bitmap_xla, "
+                    "hwbloomradixjoin_tpu/ops/bloom.py:97"),
 }
 # The least time the card could take: the larger of the bytes each function
 # must move (each input read once, each output written once) over the
@@ -224,7 +231,9 @@ INT32_OPS_PER_S = 67e12 / 4
 # partition needs one a key (its kernel computes it once), hash-mode pass 2
 # takes one in its histogram and one in its scatter; the bloom probe one
 # crc32c, one crapwow (2 products, 2 high products, 6 more) and 8 operations
-# a probe position at k = 1.  The gathered probe's function, a per-bucket
+# a probe position at k = 1; the filter build the same hashes and 4
+# operations a position (its address and bit), its atomic counted in the
+# bytes.  The gathered probe's function, a per-bucket
 # count of equal keys, needs no more than a shared-memory hash insert of
 # each R key and a hash probe of each S key (a product, a shift, a load, a
 # compare, an add and a loop step).
@@ -233,7 +242,8 @@ OPS_PER_ELEM = {"partition": 14, "compact": 3, "bitmap_build": 7,
                 "table_probe": 10, "partition_hash": 14 + 16,
                 "pass2_partition": 20, "pass2_partition_hash": 20 + 2 * 16,
                 "bloom_probe": 16 + 10 + 8 + 4, "dense_count": 5,
-                "materialize": 13, "gathered_probe": 6}
+                "materialize": 13, "gathered_probe": 6,
+                "bloom_build": 16 + 10 + 4}
 # No single PyTorch call computes any of these functions; why, per kernel.
 NO_LIBRARY_CALL = {
     "partition": "torch.sort orders by a category computed first; the starts "
@@ -256,6 +266,8 @@ NO_LIBRARY_CALL = {
                    "masked selects",
     "gathered_probe": "a sort of R, two searchsorteds of S and a per-bucket "
                       "capacity test",
+    "bloom_build": "scatter_reduce has no bitwise OR: two hashes, a bool "
+                   "map filled by index_fill_ and packed to words",
 }
 
 
@@ -899,8 +911,8 @@ def run_bpro(R, S, kind, launches, err):
     if bloom_pallas.geometry(args) != (10, 18):
         raise AssertionError("4e's filter is not the 1-pass 10-bit geometry")
     run_bloom(R, S, S_SIZE, 0.01, args,
-              ("partition_hash", "bloom_probe", "compact", "partition",
-               "bitmap_build", "bitmap_probe"),
+              ("bloom_build", "partition_hash", "bloom_probe", "compact",
+               "partition", "bitmap_build", "bitmap_probe"),
               "BPRO 16M x 128M q=0.01 blocked k=1 m=2^27 B=512", kind,
               launches)
     plan = registry.plan_kernel_join("cuda_radix", R, S, EngineConfig(
@@ -912,11 +924,13 @@ def run_bpro(R, S, kind, launches, err):
 def run_flagship(dev, kind, launches, err):
     """Phase 4f: BRJ 128M ⋈ 1.024B at q = 0.01, blocked, k = 1, m = 2^30,
     B = 512: the two-pass prune.  S's keys only are on the card.  Returns
-    the probes' class cells at the flagship."""
+    the probes' class cells at the flagship and the filter build's times
+    there: (kernel ms, twin ms, bound ms, bound_by, sector bound ms)."""
     import torch
     from hwbloomradixjoin_tpu_torch.config import (BloomArgs, BloomVariant,
                                                    EngineConfig)
     from hwbloomradixjoin_tpu_torch.data import generator as G
+    from hwbloomradixjoin_tpu_torch.data import native
     from hwbloomradixjoin_tpu_torch.models import registry
     from hwbloomradixjoin_tpu_torch.ops import run_split
     from hwbloomradixjoin_tpu_torch.ops import bitmap_join, bloom, bloom_pallas
@@ -940,7 +954,7 @@ def run_flagship(dev, kind, launches, err):
         raise AssertionError("the flagship filter is not the 2-pass 13-bit "
                              "geometry")
     st = run_bloom(R, S, FLAG_S_SIZE, 0.01, args,
-                   ("partition_hash", "pass2_partition_hash",
+                   ("bloom_build", "partition_hash", "pass2_partition_hash",
                     "bloom_probe", "compact", "partition", "bitmap_build",
                     "bitmap_probe"),
                    "BRJ 128M x 1.024B q=0.01 blocked k=1 m=2^30 B=512", kind,
@@ -948,7 +962,32 @@ def run_flagship(dev, kind, launches, err):
     # the open question of PERF.md: the same probe kernel over S as
     # generated, with no hash partition ahead of it (one random 32-byte
     # sector of the 128 MiB filter a key)
+    # the filter build at this shape: kernel and twin, each against the other
+    # and the reference filter bit for bit, beside the streaming bound (the
+    # keys read and the words written once) and the sector bound (a random
+    # 32-byte sector read and written back a key)
+    build_ms = time_usec(lambda: bloom.build_bitmap(R.key, args), dev) / 1e3
+    plain_ms = time_usec(lambda: bloom.build_bitmap_plain(R.key, args),
+                         dev) / 1e3
     words = bloom.build_bitmap(R.key, args)
+    record(err, "bloom_build", words, bloom.build_bitmap_plain(R.key, args))
+    r_host = R.key.cpu().numpy()
+    _, ref = native.ref_bloom("blocked", args.m, args.k, args.B, args.seed,
+                              r_host, r_host[:1], want_bitmap=True)
+    if not np.array_equal(words.cpu().numpy().view(np.uint8), ref):
+        raise AssertionError("the flagship filter differs from "
+                             "native.ref_bloom's")
+    n_r = R.key.numel()
+    t_bytes = (4 * n_r + args.m // 8) / HBM_BYTES_PER_S * 1e3
+    t_ops = n_r * OPS_PER_ELEM["bloom_build"] / INT32_OPS_PER_S * 1e3
+    sector = 2 * 32 * n_r / HBM_BYTES_PER_S * 1e3
+    build = (build_ms, plain_ms, max(t_bytes, t_ops),
+             "bytes" if t_bytes >= t_ops else "operations", sector)
+    print(f"bloom_build at the flagship ({n_r} keys, m=2^30, B=512, k=1): "
+          f"kernel {build_ms:.4f} ms, twin {plain_ms:.4f} ms, streaming "
+          f"bound {t_bytes:.4f} ms, operations bound {t_ops:.4f} ms, sector "
+          f"bound {sector:.4f} ms; equal to the twin and native.ref_bloom",
+          flush=True)
     direct = time_usec(lambda: bloom_pallas.bloom_probe_prune(words, S.key,
                                                               args), dev)
     _, n = bloom_pallas.bloom_probe_prune(words, S.key, args)
@@ -962,7 +1001,7 @@ def run_flagship(dev, kind, launches, err):
     plan = registry.plan_kernel_join("cuda_radix", R, S, EngineConfig(
         allow_dense=False), *registry.key_ranges(R), bloom_args=args)
     check_build("BRJ 128M x 1.024B", plan, err)
-    return class_cells("flagship", plan, run_split.card_sms(dev))
+    return class_cells("flagship", plan, run_split.card_sms(dev)), build
 
 
 def validated(label, R, S, n_s, expected, args, must, kind, launches,
@@ -2149,7 +2188,7 @@ def main():
     t0 = done("4i (radix_join_count)", t0)
     dense_in = (pro[1.0][2].key, pro[1.0][2].payload)
     del pro
-    flag_cells = run_flagship(dev, kind, launches, err)
+    flag_cells, flag_build = run_flagship(dev, kind, launches, err)
     torch.cuda.empty_cache()
     t0 = done("4f (BRJ 128M x 1.024B)", t0)
     run_key8b(dev, kind, launches)
@@ -2163,6 +2202,7 @@ def main():
 
     times = time_kernels(dev, pro_plans, b_plan, two_pass, bpro, dense_in,
                          mat_plan, gp_parts, err)
+    times["bloom_build"] = flag_build
     pass2_widths(dev, two_pass, err)
     cells = [c for label, plan in (("PRO q=1", pro_plans[1.0]),
                                    ("PRO q=0.01", pro_plans[0.01]),
@@ -2183,7 +2223,9 @@ def main():
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": err[name], "ms": times[name][0],
              "plain_ms": times[name][1], "bound_ms": times[name][2],
-             "bound_by": times[name][3], "library_ms": None,
+             "bound_by": times[name][3], "sector_bound_ms":
+             times[name][4] if len(times[name]) > 4 else None,
+             "library_ms": None,
              "library_note": "no single call: " + NO_LIBRARY_CALL[name]}
             for name, (route, source, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": rows}), flush=True)

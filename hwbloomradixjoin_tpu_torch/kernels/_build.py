@@ -45,7 +45,7 @@ LAUNCHES = {"partition": 0, "compact": 0, "bitmap_build": 0,
             "bitmap_probe": 0, "partition_kv": 0, "table_build": 0,
             "table_probe": 0, "partition_hash": 0, "pass2_partition": 0,
             "pass2_partition_hash": 0, "bloom_probe": 0, "dense_count": 0,
-            "materialize": 0, "gathered_probe": 0}
+            "materialize": 0, "gathered_probe": 0, "bloom_build": 0}
 
 _vp, _i, _u, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, \
     ctypes.c_longlong
@@ -56,6 +56,7 @@ _SIGNATURES = {
                              _ll, _i, _i, _u, _i, _i, _i, _i, _vp],
     "hbrj_bloom_probe": [_vp, _ll, _vp, _vp, _vp, _vp, _u, _u, _u, _i, _i, _i,
                          _i, _i, _i, _i, _i, _i, _ll, _vp],
+    "hbrj_bloom_build": [_vp, _ll, _vp, _ll, _ll, _i, _u, _i, _vp],
     "hbrj_compact": [_vp, _vp, _vp, _ll, _i, _i, _i, _i, _vp],
     "hbrj_bitmap_build": [_vp, _ll, _vp, _vp, _ll, _vp, _i, _i, _i, _ll, _i,
                           _i, _i, _i, _i, _i, _i, _vp],

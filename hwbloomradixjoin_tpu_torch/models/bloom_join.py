@@ -1,4 +1,6 @@
-"""BPRO / BPRH / BPRHO / BRJ: bloom-filtered radix joins, plain torch.
+"""BPRO / BPRH / BPRHO / BRJ: bloom-filtered radix joins, the filter built
+by ``bloom.build_bitmap`` (the kernel on the card) and probed in plain
+torch.
 
 Counterpart of ``hwbloomradixjoin_tpu/models/bloom_join.py``.  The reference
 fuses the filter build into R's pass 1 and the probe into S's pass 1,

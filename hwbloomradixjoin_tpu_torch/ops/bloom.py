@@ -12,10 +12,13 @@ Counterpart of ``hwbloomradixjoin_tpu/ops/bloom.py`` (src/bloom_filter.c):
 A filter is m/32 words, bit j of word w being filter bit 32w + j, held as
 int32 (the JAX package's uint32 words, reinterpreted).  ``build_bitmap`` and
 ``probe_bitmap`` are the in-graph pair (the JAX package's
-``build_bitmap_xla``/``probe_bitmap_xla``) in plain torch, on any device;
-the ``*_host`` pair returns numpy for validation and the FPR harness.  Both
-work through the keys in slabs of SLAB_KEYS, so a 1.024B-key probe side
-never holds more than a slab's int64 temporaries.
+``build_bitmap_xla``/``probe_bitmap_xla``): the build launches the CUDA
+kernel of ``csrc/bloom.cu`` for keys on the card and runs its plain twin
+``build_bitmap_plain`` for keys on the CPU; the probe is plain torch on any
+device.  The ``*_host`` pair returns numpy for validation and the FPR
+harness.  The plain functions work through the keys in slabs of SLAB_KEYS,
+so a 1.024B-key probe side never holds more than a slab's int64
+temporaries.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from hwbloomradixjoin_tpu_torch.config import BloomArgs, BloomVariant
+from hwbloomradixjoin_tpu_torch.kernels import _build
 from hwbloomradixjoin_tpu_torch.ops import hashes
 from hwbloomradixjoin_tpu_torch.ops import u32 as U
 
@@ -84,7 +88,35 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def build_bitmap(keys: torch.Tensor, args: BloomArgs) -> torch.Tensor:
-    """The filter of `keys` as (m/32,) int32 words, on keys' device.
+    """The filter of `keys` (any shape, PAD included) as (m/32,) int32
+    words, on keys' device.
+
+    Keys on the card (contiguous int32) go to the kernel hbrj_bloom_build
+    (csrc/bloom.cu): the words are zeroed here and the kernel sets each
+    probe's bit with an atomicOr, one launch for each L2-sized section of
+    the words.  Keys on the CPU go to build_bitmap_plain; any other input
+    raises.
+    """
+    if keys.device.type == "cpu":
+        return build_bitmap_plain(keys, args)
+    if keys.device.type != "cuda":
+        raise ValueError(f"filter build given keys on {keys.device}")
+    if keys.dtype != torch.int32 or not keys.is_contiguous():
+        raise ValueError(f"filter build needs contiguous int32 keys, got "
+                         f"{keys.dtype}, contiguous={keys.is_contiguous()}")
+    if args.m % 32:
+        raise ValueError(f"m = {args.m}: the filter is whole 32-bit words")
+    blocked = args.variant == BloomVariant.BLOCKED
+    words = torch.zeros(args.m // 32, dtype=torch.int32, device=keys.device)
+    _build.launch("bloom_build", "hbrj_bloom_build", keys.device,
+                  keys.data_ptr(), keys.numel(), words.data_ptr(), args.m,
+                  args.B if blocked else 0, int(blocked),
+                  args.seed & U.MASK32, args.k)
+    return words
+
+
+def build_bitmap_plain(keys: torch.Tensor, args: BloomArgs) -> torch.Tensor:
+    """Plain twin of build_bitmap, on any device.
 
     torch has no OR scatter: each probe position sets a bool (idempotent,
     so exact for any multiset) and the bits are packed 32 to a word.  The

@@ -31,8 +31,8 @@ port's kernels read the filter flat and each run in place, so every blocked
 filter prunes through them.  A block larger than a slice is partitioned by
 whole blocks, and a skewed S, whose pass-2 regions would multiply its size,
 is probed in pass 1's order.  The basic variant spreads its probes over the
-whole filter and has no kernel formulation; it prunes in plain torch
-(``models/bloom_join.py``).
+whole filter and has no probe kernel; it prunes in plain torch behind the
+build kernel (``models/bloom_join.py``).
 """
 
 from __future__ import annotations
@@ -193,8 +193,9 @@ def bloom_probe_prune(filter_words: torch.Tensor, s_part: torch.Tensor,
 
 @dataclasses.dataclass
 class BloomPrunePlan:
-    """The prune over device-resident inputs: filter build from R (plain
-    torch), hash partition of S (one or two passes), filter probe.
+    """The prune over device-resident inputs: filter build from R
+    (bloom.build_bitmap), hash partition of S (one or two passes), filter
+    probe.
 
     prune() rebuilds the filter, re-partitions S and writes the pruned keys
     into `out` IN PLACE (a join plan planned over `out` reads them there),

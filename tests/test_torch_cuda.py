@@ -12,6 +12,10 @@ payloads, the hash-mode partition, pass 2 in both modes (all PAD, one chunk,
 empty buckets, b2 = 1, 2, 3, 6 and 10, spans of several chunks whose windows
 do not divide into tiles, runs of 0 and 1 keys, regions truncated at their
 capacity), the bloom probe (k = 1..8, B = 32 to 2^17, no survivors),
+the filter build (both variants, k = 1 to 8, B = 32 to 2^17, m = 2^10 to
+2^30, the flagship's filter over 16M keys against the benchmark's
+reference positions, 1 to 7 keys at each 4-byte offset, empty and all-PAD
+R, one launch a call, int64 and strided keys refused),
 the prune past the TPU's limits (2,049 chunks, a hot key), the bitmap build
 walking R's runs in every split (1 to 8 CTAs a range, 1 to 64 buckets a
 range; pad category on and off, a duplicate-heavy
@@ -175,7 +179,7 @@ def test_launch_counts_and_input_checks(cuda):
                                "pass2_partition": 0,
                                "pass2_partition_hash": 0, "bloom_probe": 0,
                                "dense_count": 0, "materialize": 0,
-                               "gathered_probe": 0}
+                               "gathered_probe": 0, "bloom_build": 0}
     with pytest.raises(ValueError):
         X.partition_pass(keys.to(cuda).long(), geom)
     with pytest.raises(ValueError):
@@ -706,6 +710,91 @@ def test_bloom_probe_kernel_empty_filter_and_all_pad(cuda):
     pads = torch.full((4096,), PAD, dtype=torch.int32, device=cuda)
     got, n = BP.bloom_probe_prune(full, pads, args)
     assert int(n) == 0 and (got == PAD).all()
+
+
+def _build_keys(rng):
+    """100,003 keys for a filter (a 3-key tail): negatives, PAD, one key
+    1,000 times and 30,000 repeats of others."""
+    keys = _hash_keys(rng, 70_003)
+    keys[:1000] = keys[1000]
+    return torch.cat([keys, keys[rng.integers(0, 70_003, 30_000)]])
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant,B,m", [
+    ("basic", 512, 1 << 10), ("basic", 512, 1 << 24),
+    ("basic", 512, 1 << 30), ("blocked", 32, 1 << 10),
+    ("blocked", 512, 1 << 22), ("blocked", 512, 1 << 30),
+    ("blocked", 1 << 17, 1 << 17), ("blocked", 1 << 17, 1 << 26),
+    ("blocked", 1 << 28, 1 << 30)])
+def test_bloom_build_kernel_matches_twin(cuda, k, variant, B, m):
+    """Both variants, k = 1 to 8, B = 32 to 2^28, m = 2^10 to 2^30 (one
+    launch, 8 sections, and 4 sections of one block each): the kernel's
+    words equal the plain build's bit for bit, over duplicates,
+    negatives and PAD (_build_keys), and over the same keys less the first
+    (a view that starts between 16-byte boundaries)."""
+    rng = np.random.default_rng(k * 131 + m.bit_length() + B)
+    args = BloomArgs(variant=BloomVariant(variant), m=m, k=k, B=B, seed=7)
+    keys = _build_keys(rng).to(cuda)
+    for view in (keys, keys[1:]):
+        got = bloom.build_bitmap(view, args)
+        want = bloom.build_bitmap_plain(view, args)
+        torch.cuda.synchronize()
+        assert got.shape == (m // 32,) and torch.equal(got, want)
+
+
+def test_bloom_build_kernel_at_the_flagship_filter(cuda):
+    """m = 2^30, B = 512, k = 1 over 16M keys: the plain build's words and
+    the benchmark reference's positions (joinbench/filterhash.py), set by
+    an index_add of distinct powers of two."""
+    from joinbench import filterhash
+    rng = np.random.default_rng(5)
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 30, k=1, B=512)
+    keys = torch.from_numpy(rng.integers(-2**31, 2**31, 1 << 24,
+                                         dtype=np.int64).astype(np.int32))
+    keys = keys.to(cuda)
+    got = bloom.build_bitmap(keys, args)
+    assert torch.equal(got, bloom.build_bitmap_plain(keys, args))
+    pos = torch.unique(filterhash.positions(keys, {
+        "variant": "blocked", "m": args.m, "k": 1, "B": 512,
+        "seed": args.seed})[0])
+    want = torch.zeros(args.m // 32, dtype=torch.int64, device=cuda)
+    want.index_add_(0, pos >> 5, torch.ones_like(pos) << (pos & 31))
+    assert torch.equal(got.long() & 0xFFFFFFFF, want)
+
+
+def test_bloom_build_kernel_edges_and_launches(cuda):
+    """Empty, 1 to 7 keys at each of the four 4-byte offsets (head and tail
+    only), all PAD, against the plain build and the reference filter
+    (native.ref_bloom); one launch a call, an empty R's included; int64
+    and non-contiguous keys on the card are refused, unlaunched."""
+    from hwbloomradixjoin_tpu_torch.data import native
+    rng = np.random.default_rng(17)
+    base = _hash_keys(rng, 64).to(cuda)
+    _build.reset_launches()
+    calls = 0
+    for variant in ("basic", "blocked"):
+        args = BloomArgs(variant=BloomVariant(variant), m=1 << 12, k=3,
+                         B=64)
+        empty = bloom.build_bitmap(base[:0], args)
+        assert empty.shape == (128,) and not empty.any()
+        calls += 1
+        cases = [base[off:off + n] for off in range(4) for n in range(1, 8)]
+        cases.append(torch.full((9,), PAD, dtype=torch.int32, device=cuda))
+        for keys in cases:
+            got = bloom.build_bitmap(keys, args)
+            calls += 1
+            assert torch.equal(got, bloom.build_bitmap_plain(keys, args))
+            _, ref = native.ref_bloom(variant, args.m, 3, 64, args.seed,
+                                      keys.cpu().numpy(), keys[:1].cpu()
+                                      .numpy(), want_bitmap=True)
+            assert np.array_equal(got.cpu().numpy().view(np.uint8), ref)
+    assert _build.LAUNCHES["bloom_build"] == calls
+    with pytest.raises(ValueError):
+        bloom.build_bitmap(base.long(), args)
+    with pytest.raises(ValueError):
+        bloom.build_bitmap(base[::2], args)
+    assert _build.LAUNCHES["bloom_build"] == calls
 
 
 def test_bloom_prune_plan_on_card_equals_plan_on_cpu(cuda):
