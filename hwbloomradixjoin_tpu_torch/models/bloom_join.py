@@ -50,8 +50,9 @@ class PrunePlan:
     bloom_pallas.BloomPrunePlan: prune() rebuilds the filter and writes S's
     keys where the filter contains them, PAD elsewhere, into the first
     |S| words of `out` IN PLACE (the rest stays PAD), returning (out,
-    survivor count).  phase_fns() gives bloom_build and bloom_probe, each
-    run in its span (``hbrj.bloom_build``, ``hbrj.bloom_probe``)."""
+    survivor count), all in the span ``hbrj.ordered_prune``.  phase_fns()
+    gives bloom_build and bloom_probe, each run in its span
+    (``hbrj.bloom_build``, ``hbrj.bloom_probe``)."""
 
     r_key: torch.Tensor
     s_key: torch.Tensor
@@ -73,7 +74,8 @@ class PrunePlan:
             return self.out, mask.sum()
 
     def prune(self):
-        return self.probe(self.build())
+        with span("hbrj.ordered_prune"):
+            return self.probe(self.build())
 
     def phase_fns(self) -> dict:
         if not self._cache:

@@ -408,6 +408,34 @@ def test_run_join_with_filter_matches_jax(algo, nonunique, use_kernels,
                                  + st.phases["build"])
 
 
+@pytest.mark.parametrize("variant", ["blocked", "basic"])
+def test_filtered_prho_plan_gives_the_benchmark_reference(variant):
+    """BPRHO as the benchmark issues it (PRHO behind the filter, the
+    order-preserving prune, tier cuda_prho) on the benchmark's generator at
+    q = 0.01 gives the benchmark's plain reference exactly: count, both
+    checksums and S-tuples after filter."""
+    from joinbench import datagen, reference
+
+    filt = {"variant": variant, "m": 1 << 18, "k": 1, "B": 512, "seed": 42}
+    config = {"r_size": 1 << 14, "s_size": 1 << 17, "nthreads": 4,
+              "tuple_bytes": 8, "selectivity": 0.01, "filter": filt}
+    rel = datagen.make(config, 2**31 + 5, "cpu")
+    R = Relation(key=rel.r_key, payload=rel.r_pay, stats=KeyStats(
+        1, config["r_size"], is_dense_pk=True, is_unique=True))
+    S = Relation(key=rel.s_key, payload=rel.s_pay)
+    plan, tier = registry.plan_join(
+        "PRHO", R, S, EngineConfig(allow_dense=False),
+        BloomArgs(variant=BloomVariant(variant), m=filt["m"], k=1, B=512,
+                  seed=42))
+    assert tier == "cuda_prho"
+    assert isinstance(plan.prune, bloom_join.PrunePlan)
+    count, r_sum, s_sum = plan.full().tolist()
+    want = reference.answers(rel, config, {"result": "sums", "filter": True})
+    assert {"count": count, "r_sum": r_sum, "s_sum": s_sum,
+            "s_after": plan.s_after} == want
+    assert 0 < want["count"] < want["s_after"] < config["s_size"]
+
+
 def test_npo_ignores_the_filter():
     rk, rp, sk, sp = _workload()
     res, st, _ = run_join("NPO", Relation.from_numpy(rk, rp, device="cpu"),

@@ -3,9 +3,9 @@
 ``utils/profiling.py`` on the CPU at tiny sizes: the span tree of
 ``registry.plan_join`` and the plan's ``full()`` on the paths the
 benchmark's cells take (PRO at q = 1 and q = 0.01, PRO behind a blocked
-filter pruned in two hash passes, PRHO) as a CPU profiler sees it, the
-host reads each step makes, and what spans do with no profiler running and
-inside ``profiling.trace()``.
+filter pruned in two hash passes, PRHO, PRHO behind the order-preserving
+prune) as a CPU profiler sees it, the host reads each step makes, and what
+spans do with no profiler running and inside ``profiling.trace()``.
 """
 
 import json
@@ -28,6 +28,7 @@ PHASES = ["hbrj.r_partition", "hbrj.build", "hbrj.s_partition",
 COMPACTED = ["hbrj.r_partition", "hbrj.build", "hbrj.compact",
              "hbrj.s_partition", "hbrj.probe"]
 PRUNE = ["hbrj.bloom_build", "hbrj.bloom_partition", "hbrj.bloom_probe"]
+ORDERED = ["hbrj.bloom_build", "hbrj.bloom_probe"]
 
 
 def _leaves(*names):
@@ -61,6 +62,18 @@ PATHS = {
         _leaves(*PRUNE, *COMPACTED),
         {"hbrj.plan.pass2_geometry": 1, "hbrj.plan.prune": 1,
          "hbrj.plan.survivor_count": 1, "hbrj.plan.compact_cap": 1}),
+    # PRHO behind the filter: the order-preserving prune keeps S's
+    # payloads beside its keys, and the join is planned over its buffer
+    "cuda_prho.bloom": (
+        "PRHO", 20_000, 100 * N_R,
+        BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 22, k=1, B=512),
+        _leaves("hbrj.plan.prune_out")
+        + [("hbrj.plan.prune", [("hbrj.ordered_prune", _leaves(*ORDERED))])]
+        + _leaves("hbrj.plan.pad_s", "hbrj.plan.pad_r", "hbrj.plan.pad_s")
+        + [("hbrj.plan.multiplicity_guard",
+            _leaves("hbrj.r_partition", "hbrj.build", "hbrj.s_partition"))],
+        [("hbrj.ordered_prune", _leaves(*ORDERED))] + _leaves(*PHASES),
+        {"hbrj.plan.prune": 1, "hbrj.plan.multiplicity_guard": 1}),
     "cuda_prho": ("PRHO", 20_000, N_R, None,
                   _leaves("hbrj.plan.pad_r", "hbrj.plan.pad_s")
                   + [("hbrj.plan.multiplicity_guard",
@@ -209,7 +222,8 @@ def test_spans_go_off_when_the_profiler_stops(query, monkeypatch):
     assert profiling.span("hbrj.a") is profiling.span("hbrj.b")
 
 
-@pytest.mark.parametrize("path", ["cuda_radix.q001", "cuda_prho"])
+@pytest.mark.parametrize("path", ["cuda_radix.q001", "cuda_prho",
+                                  "cuda_prho.bloom"])
 def test_phase_fns_run_in_their_spans(path, query):
     """Each phase a plan times on its own runs in the span of the same
     name as in full(), so the planning run and the timed run agree."""
