@@ -29,6 +29,7 @@ from hwbloomradixjoin_tpu_torch.measurements import (analysis, plot_basics,
                                                      rerun, run)
 from hwbloomradixjoin_tpu_torch.measurements.config import JoinConfig
 from hwbloomradixjoin_tpu_torch.utils import roofline
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"

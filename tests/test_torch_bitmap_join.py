@@ -20,6 +20,7 @@ from hwbloomradixjoin_tpu_torch.ops import bitmap_join as TB
 from hwbloomradixjoin_tpu_torch.ops import bloom_pallas as TBP
 from hwbloomradixjoin_tpu_torch.ops import radix as TX
 from hwbloomradixjoin_tpu_torch.ops import run_split
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 PAD = -2**31
 

@@ -35,6 +35,7 @@ from hwbloomradixjoin_tpu_torch.data import native
 from hwbloomradixjoin_tpu_torch.models import bloom_join, registry, run_join
 from hwbloomradixjoin_tpu_torch.ops import bloom, bloom_pallas, hashes
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY, KeyStats, Relation
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 PAD = np.int32(PAD_KEY)
 

@@ -29,6 +29,7 @@ from hwbloomradixjoin_tpu_torch.utils import roofline
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "measurements"))
 from measurements.run import parse_result  # noqa: E402
+from port_cpu import lean_cpu  # noqa: E402,F401  (autouse)
 
 # tests/test_harness.py:12-21's two texts
 CONF_TEXTS = [

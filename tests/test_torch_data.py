@@ -17,6 +17,7 @@ from hwbloomradixjoin_tpu.types import KeyStats as JKeyStats
 from hwbloomradixjoin_tpu.types import Relation as JRelation
 from hwbloomradixjoin_tpu_torch.data import generator as TG
 from hwbloomradixjoin_tpu_torch.types import KeyStats, Relation
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "relations_golden.npz")

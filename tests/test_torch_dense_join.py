@@ -19,6 +19,7 @@ from hwbloomradixjoin_tpu_torch.data import native
 from hwbloomradixjoin_tpu_torch.models import bloom_join, registry
 from hwbloomradixjoin_tpu_torch.ops import dense_join as TD
 from hwbloomradixjoin_tpu_torch.types import KeyStats, Relation
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 PAD = -2**31
 

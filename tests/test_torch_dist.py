@@ -34,6 +34,7 @@ from hwbloomradixjoin_tpu_torch.parallel import mesh, multiproc, skew
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "measurements"))
 from measurements.run import parse_result  # noqa: E402
+from port_cpu import lean_cpu  # noqa: E402,F401  (autouse)
 
 UNIFORM = {"r_size": 8192, "s_size": 32768, "nthreads": 4,
            "selectivity": 0.4}

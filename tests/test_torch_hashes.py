@@ -15,6 +15,7 @@ import torch
 from hwbloomradixjoin_tpu.ops import hashes as jhashes
 from hwbloomradixjoin_tpu_torch.ops import hashes
 from hwbloomradixjoin_tpu_torch.ops import u32 as U
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "hash_golden.npz")

@@ -26,6 +26,7 @@ from hwbloomradixjoin_tpu_torch.config import (BloomArgs, BloomVariant,
 from hwbloomradixjoin_tpu_torch.models import run_join
 from hwbloomradixjoin_tpu_torch.ops import xla_join as X
 from hwbloomradixjoin_tpu_torch.types import KeyStats, Relation
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 PAD = -2**31
 M64 = (1 << 64) - 1

@@ -28,6 +28,7 @@ from hwbloomradixjoin_tpu_torch.ops import prho_join as TP
 from hwbloomradixjoin_tpu_torch.ops import radix as TR
 from hwbloomradixjoin_tpu_torch.ops import xla_join as TX
 from hwbloomradixjoin_tpu_torch.types import KeyStats, Relation
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 PAD = -2**31
 

@@ -36,6 +36,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "measurements"))
 from measurements.config import JoinConfig as JJoinConfig  # noqa: E402
 from measurements.run import parse_result as jparse_result  # noqa: E402
+from port_cpu import lean_cpu  # noqa: E402,F401  (autouse)
 
 # tests/test_harness.py:44-55's sample
 SAMPLE = (

@@ -32,6 +32,7 @@ from hwbloomradixjoin_tpu_torch.data import native
 from hwbloomradixjoin_tpu_torch.models import registry, run_join
 from hwbloomradixjoin_tpu_torch.ops import multipass, radix
 from hwbloomradixjoin_tpu_torch.types import PAD_KEY, KeyStats, Relation
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 
 def _keys(rng, n, pad_frac=0.05):

@@ -12,6 +12,7 @@ import pytest
 
 from hwbloomradixjoin_tpu.data import native as JN
 from hwbloomradixjoin_tpu_torch.data import native as TN
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("seed,n,minid,maxid", [(12345, 1000, 0, 37),

@@ -22,6 +22,7 @@ from hwbloomradixjoin_tpu.ops import xla_join as JX
 import hwbloomradixjoin_tpu_torch as port
 from hwbloomradixjoin_tpu_torch.ops import aggregate, ht_join, sort, xla_join
 from hwbloomradixjoin_tpu_torch.ops import radix as TR
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 PAD = -2**31
 

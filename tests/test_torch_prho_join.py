@@ -20,6 +20,7 @@ from hwbloomradixjoin_tpu.ops import radix as JR
 from hwbloomradixjoin_tpu_torch.data import native
 from hwbloomradixjoin_tpu_torch.ops import prho_join as TP
 from hwbloomradixjoin_tpu_torch.ops import radix as TR
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 PAD = -2**31
 M32 = 2**32

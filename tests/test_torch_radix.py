@@ -12,6 +12,7 @@ import torch
 
 from hwbloomradixjoin_tpu.ops import radix as JR
 from hwbloomradixjoin_tpu_torch.ops import radix as TR
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 PAD = -2**31
 

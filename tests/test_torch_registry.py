@@ -23,6 +23,7 @@ from hwbloomradixjoin_tpu_torch.config import (BloomArgs, EngineConfig,
 from hwbloomradixjoin_tpu_torch.models import registry
 from hwbloomradixjoin_tpu_torch.models import run_join
 from hwbloomradixjoin_tpu_torch.types import KeyStats, Relation
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -21,6 +21,7 @@ from hwbloomradixjoin_tpu_torch.measurements import rerun
 from hwbloomradixjoin_tpu_torch.tools import (build_check, microbench,
                                               part_bench, validate_key8b,
                                               validate_pro)
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 CPU = ["--engine-backend", "cpu"]
 

@@ -21,6 +21,7 @@ from hwbloomradixjoin_tpu_torch.models import registry
 from hwbloomradixjoin_tpu_torch.ops import bloom_pallas
 from hwbloomradixjoin_tpu_torch.types import KeyStats, Relation
 from hwbloomradixjoin_tpu_torch.utils import profiling
+from port_cpu import lean_cpu  # noqa: F401  (autouse)
 
 N_R = 3000
 PHASES = ["hbrj.r_partition", "hbrj.build", "hbrj.s_partition",
